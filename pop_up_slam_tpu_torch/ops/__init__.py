@@ -1,0 +1,22 @@
+"""Hand-written CUDA kernels for the H100, each beside its plain PyTorch
+version (used for CPU tensors):
+
+- :mod:`fused_gn`      — K1, the whole windowed GN solve in one launch;
+- :mod:`depth_render`  — K2, the dense depth render of the pop-up;
+- :mod:`cholesky`      — K4, Cholesky factorize + solve (its device
+                         routine is also K1's reduced solve);
+- :mod:`plane_jacobians` — the closed-form plane-factor Jacobians.
+
+Kernels are built from ``csrc/`` at first use (:mod:`._build`); nothing
+is compiled or loaded at import.
+"""
+
+from . import cholesky, depth_render, fused_gn, plane_jacobians  # noqa: F401
+from .cholesky import chol_solve, chol_solve_plain  # noqa: F401
+from .fused_gn import (  # noqa: F401
+    fused_gn_plain,
+    fused_gn_solve,
+    fused_gn_supported,
+    pack_marg,
+)
+from .plane_jacobians import plane_terms_analytic  # noqa: F401
