@@ -89,6 +89,118 @@ def _bound(nbytes: float, ops: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+# ---- operation counts for the bounds ----
+# Arithmetic operations (add, subtract, multiply, divide, square root,
+# transcendental: one each; compares, selects and sign flips: none) of the
+# work these inputs need, counted from the kernels' sources.  Where a
+# helper branches on the data (small-angle series), the cheaper branch is
+# counted; a symmetric product counts its upper triangle once; only valid
+# factors, free poses and landmarks that are observed do work.  So the
+# counts never exceed what the inputs need.
+
+def _chol_ops(n: int) -> float:
+    """Cholesky of an n x n SPD matrix plus the two triangular solves."""
+    return n ** 3 / 3 + n ** 2 / 2 + n / 6 + n + 2 * n * n
+
+
+# lie.cuh helpers, composed as there
+_DOT3, _MV3, _MM3, _HAT3_SQ, _EYE_PLUS = 5, 15, 45, 17, 36
+_SINC, _COSC, _SERIES = 3, 6, 6          # sincc/cot_term/c2/c3: 6 each
+_SO3_EXP = 6 + _HAT3_SQ + _SINC + _COSC + _EYE_PLUS
+_SO3_LOG = 20 + 6 + 3 + 3                # quaternion, |v|, scale, phi
+_V = 6 + _HAT3_SQ + _COSC + _SERIES + _EYE_PLUS
+_V_INV = 6 + _HAT3_SQ + _SERIES + _EYE_PLUS
+_Q = 6 + 3 * _SERIES + 7 * _MM3 + 9 * 13
+_JR_INV = _V_INV + _Q + 2 * _MM3
+_ADJOINT = _MM3
+_SE3_LOG = _SO3_LOG + _V_INV + _MV3
+_SE3_EXP = _SO3_EXP + _V + _MV3
+_COMPOSE = _MM3 + _MV3 + 3
+_BETWEEN = _MV3 + _COMPOSE
+_INV3 = 27 + 5 + 9
+_SPD_INV6 = 2 * _INV3 + 3 * _MM3 + 54 + 18
+_TANGENT4 = 1 + 7 + 48
+_NORMAL_COLS = 1 + 5 + 24
+_PLANE_NORMALIZE = 12
+_ROBUST = {"none": 0, "huber": 6, "cauchy": 9}   # rho + IRLS weight
+
+
+def _mm(n: int, k: int, m: int) -> int:
+    return 2 * n * k * m
+
+
+def _sym(n: int, k: int) -> int:
+    """A^T A with A (k x n): upper triangle only."""
+    return n * (n + 1) // 2 * 2 * k
+
+
+# one plane factor (fused_gn.cu plane_factor): prediction 51, measured
+# plane 19, tangent columns, residual 11, Jp 30, S^3 basis, dnc 54, Jl 102,
+# whitening (A r, A Jp, A Jl, |r|^2, sqrt, scale 30)
+_PLANE_FACTOR = (51 + 19 + _NORMAL_COLS + 11 + 30 + _TANGENT4 + 54 + 102
+                 + _MV3 + _mm(3, 3, 6) + _mm(3, 3, 3) + 5 + 1 + 30)
+# one odometry factor (pose_factor); a prior skips the measurement between
+_ODOM_FACTOR = (2 * _BETWEEN + _SE3_LOG + _JR_INV + _mm(6, 6, 6) + _BETWEEN
+                + _ADJOINT + _mm(6, 6, 6) + _mm(6, 6, 1) + 12 + 1 + 78)
+_PRIOR_FACTOR = _ODOM_FACTOR - _BETWEEN
+# the exiting keyframe's marginal (marginal()), once per launch: four
+# betweens, two logs and J_r^-1, A J, the adjoint; A J Ad, A_p J_r,
+# J0^T J1, H01^T H00^-1 (full); J0^T J0, Jq^T Jq, J1^T J1, T H01
+# (symmetric); H00 sums, the 6x6 inverse, Hm, symmetrize + floor, the 6x6
+# Cholesky, and the blend into the prior
+_MARGINAL = (4 * _BETWEEN + 2 * _SE3_LOG + 2 * _JR_INV + 36 + _ADJOINT
+             + 4 * _mm(6, 6, 6) + 4 * _sym(6, 6) + 27 + _SPD_INV6 + 21 + 48
+             + (_chol_ops(6) - 2 * 36) + 192)
+
+
+def k1_ops(window, factors, iters: int, robust) -> float:
+    """Operations of one K1 launch on these inputs (see above)."""
+    W = window.window_size
+    free = (window.pose_valid & ~window.pose_fixed).cpu().numpy()
+    lm_valid = window.lm_valid.cpu().numpy()
+    pf, od, pr = factors.planes, factors.odom, factors.priors
+    pv = pf.valid.cpu().numpy()
+    pp, pl = pf.pose_idx.cpu().numpy(), pf.lm_idx.cpu().numpy()
+    L = lm_valid.shape[0]
+    pv = pv & (pp >= 0) & (pp < W) & (pl >= 0) & (pl < L)
+    n_pf = int(pv.sum())
+    n_od = int(od.valid.cpu().numpy().sum())
+    n_pr = int(pr.valid.cpu().numpy().sum())
+    # distinct free poses observing each landmark: the sparse Hpl blocks
+    n_l = np.zeros(L, np.int64)
+    for l in range(L):
+        n_l[l] = len({int(p) for p in pp[pv & (pl == l)] if free[p]})
+    n_lm = int((n_l > 0).sum())
+    n = 6 * int(free.sum())
+
+    lin = (n_pf * (_PLANE_FACTOR + _ROBUST[robust.plane.kind])
+           + n_od * (_ODOM_FACTOR + _ROBUST[robust.odom.kind])
+           + n_pr * (_PRIOR_FACTOR + _ROBUST[robust.prior.kind]))
+    # normal equations: Hpp (diag + off-diag blocks), Hpl, Hll, gradients
+    normal = (n_od * (2 * _sym(6, 6) + _mm(6, 6, 6) + 2 * _mm(6, 6, 1))
+              + n_pr * (_sym(6, 6) + _mm(6, 6, 1))
+              + n_pf * (_sym(6, 3) + _mm(6, 3, 3) + _sym(3, 3)
+                        + _mm(6, 3, 1) + _mm(3, 3, 1))
+              + n_lm * (3 + _INV3) + n_pf + n_od + n_pr + 1)
+    # Schur: per landmark B_l = Hpl_l Hll^-1, S -= B_l Hpl_l^T, rhs
+    m = 6 * n_l
+    schur = float((_mm(1, 3, 3) * m + m * (m + 1) // 2 * 6
+                   + _mm(1, 3, 1) * m).sum()) + 2 * n
+    back = float((12 * 3 * n_l + 3 + 15)[n_l > 0].sum())
+    step = 2 * (n + 3 * n_lm)
+    retract = (n // 6) * (_SE3_EXP + _COMPOSE) + int(lm_valid.sum()) * (
+        _TANGENT4 + 24 + _PLANE_NORMALIZE)
+    per_it = lin + normal + schur + _chol_ops(n) + back + step + retract
+    return iters * per_it + _MARGINAL
+
+
+def k2_ops(H: int, W: int, n_walls: int) -> float:
+    """Operations of one K2 launch: per pixel the ray, its rotation and
+    the ground hit (21); per valid wall the hit, its extent and height
+    tests (19); per wall once the staged terms (14)."""
+    return H * W * (21 + 19 * n_walls) + 14 * n_walls
+
+
 def _load_inputs():
     z = np.load(os.path.join(REPO, "bench_data", "corridor_inputs.npz"))
     n, h, w = z["shape"]
@@ -134,7 +246,7 @@ def check_k4(torch, cholesky):
                                   n=10, warm=2),
                 library_ms=_time_ms(lambda: torch.cholesky_solve(
                     b[:, None], torch.linalg.cholesky(S))),
-                bound=_bound(4 * (n * n + 2 * n), n ** 3 / 3 + 2 * n * n),
+                work=(4 * (n * n + 2 * n), _chol_ops(n)),
             )
     return worst, timing
 
@@ -164,20 +276,22 @@ def check_k2(torch, pp, depth_render, K, masks, ref):
         if timing is None:
             H, W = mask.shape
             S = res.planes_w.shape[0]
-            nbytes = H * W * 1 + 4 * (22 + 12 * S) + H * W * 4
-            ops = H * W * (22 + 25 * S)   # per pixel: ray + ground, per wall
+            # mask, depth, camera/pose/ground, planes, endpoints, flags
+            nbytes = H * W * (1 + 4) + 4 * (4 + 9 + 3 + 4) + S * (
+                4 * 4 + 4 * 6 + 3)
+            ops = k2_ops(H, W, int(res.valid.sum()))
             timing = dict(
                 ms=_time_ms(lambda: depth_render.depth_render(
                     K, res, mask, R, t)),
                 plain_ms=_time_ms(lambda: pp.depth_from_popup(
                     K, res, mask, R, t), n=20),
                 library_ms=None,
-                bound=_bound(nbytes, ops),
+                work=(nbytes, ops),
             )
     return worst, timing
 
 
-def check_k1(torch, fused_gn, slam_mod, state, scfg):
+def check_k1(torch, _build, fused_gn, slam_mod, state, scfg):
     """K1 vs its plain version on a mid-sequence state (window full)."""
     W = scfg.window_size
     factors = slam_mod._build_factors(state, scfg)
@@ -212,24 +326,21 @@ def check_k1(torch, fused_gn, slam_mod, state, scfg):
     F = factors.planes.valid.shape[0]
     O = factors.odom.valid.shape[0]
     P = factors.priors.valid.shape[0]
-    n6, n3 = 6 * Wn, 3 * L
+    # the Python shape gate's layout size is the kernel's own
+    smem_c = _build.library().popup_fused_gn_smem_bytes(Wn, L, F, O, P)
+    assert smem_c == fused_gn.smem_bytes(Wn, L, F, O, P), smem_c
     # inputs read once + outputs written once
     nbytes = 4 * (12 * Wn + 4 * L + 48 * P + 13 * F + 48 * O + 128
                   + 2 * F + 2 * O + P) + (2 * Wn + L + F + O + P) \
         + 4 * (12 * Wn + 4 * L + scfg.gn_iters + 36)
-    # per iteration: S = Hpp - B Hpl^T, B = Hpl Hll^-1, Hpl/Hpp/Hll
-    # assembly, Cholesky + substitutions, back-substitution,
-    # linearization (~400 flops per plane factor, ~3000 per pose factor)
-    per_it = (2 * n6 * n6 * n3 + 6 * n6 * n3 + 2 * F * (18 * 6 + 18 * 3 + 9)
-              + n6 ** 3 / 3 + 2 * n6 * n6 + 2 * n6 * n3
-              + 400 * F + 3000 * (O + P))
+    ops = k1_ops(w0, factors, scfg.gn_iters, scfg.robust)
     timing = dict(
         ms=_time_ms(lambda: fused_gn.fused_gn_solve(w0, factors, **kw)),
         plain_ms=_time_ms(lambda: fused_gn.fused_gn_plain(
             w0, factors, scfg.gn_iters, scfg.damping, scfg.robust, marg, ms),
             n=10, warm=2),
         library_ms=None,
-        bound=_bound(nbytes, scfg.gn_iters * per_it),
+        work=(nbytes, ops),
     )
     return err, timing
 
@@ -283,8 +394,8 @@ def main() -> int:
     st_cpu = slam_init(scfg, R0, t0, device="cpu")
     st_cpu, _ = run_sequence_chunked(st_cpu, masks[:24], oR[:24], ot[:24],
                                      K_cpu, pcfg, scfg)
-    k1_err, k1_t = check_k1(torch, fused_gn, slam_mod, _to(st_cpu, "cuda"),
-                            scfg)
+    k1_err, k1_t = check_k1(torch, _build, fused_gn, slam_mod,
+                            _to(st_cpu, "cuda"), scfg)
 
     # ---- 3. the main path ----
     warm = slam_init(scfg, R0, t0)
@@ -333,12 +444,13 @@ def main() -> int:
 
     # ---- 4. summary ----
     def row(name, source, replaces, err, tm, n_launch, on_path=True):
-        b_ms, b_by = tm["bound"]
+        b_ms, b_by = _bound(*tm["work"])
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n_launch,
                 "max_abs_err": err, "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                 "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": tm["library_ms"], "launched_on_path": on_path}
+                "library_ms": tm["library_ms"], "bytes": tm["work"][0],
+                "operations": tm["work"][1], "launched_on_path": on_path}
 
     src = "pop_up_slam_tpu_torch/ops/csrc/"
     kernels = [

@@ -31,13 +31,9 @@ __global__ void chol_solve_kernel(const float* __restrict__ S,
 
 }  // namespace
 
-extern "C" int popup_chol_solve_smem_bytes(int n) {
-  return (int)sizeof(float) * (n * n + n + 1);
-}
-
 extern "C" int popup_chol_solve(const float* S, const float* b, float* x,
                                 int n, void* stream) {
-  const int smem = popup_chol_solve_smem_bytes(n);
+  const int smem = (int)sizeof(float) * (n * n + n + 1);  // A, y, red
   cudaError_t err = cudaFuncSetAttribute(
       chol_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

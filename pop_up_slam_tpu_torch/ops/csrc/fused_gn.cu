@@ -29,7 +29,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxSmem = 232448;  // 227 KB, the H100's per-block maximum
 
 struct Robust {
   int kind;  // 0 none, 1 huber, 2 cauchy
@@ -640,8 +639,9 @@ extern "C" int popup_fused_gn(
   a.R_out = R_out; a.t_out = t_out; a.planes_out = planes_out;
   a.costs_out = costs_out; a.msqrt_out = msqrt_out;
 
+  // the wrapper's shape gate (fused_gn_supported) keeps smem within the
+  // block limit; past it the attribute call fails and the wrapper raises
   const int smem = popup_fused_gn_smem_bytes(W, L, F, O, P);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       fused_gn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

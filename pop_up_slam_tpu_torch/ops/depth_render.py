@@ -3,10 +3,12 @@ plain PyTorch version.
 
 Replaces ``pop_up_slam_tpu/ops/depth_render.py::depth_render_pallas``.
 The CUDA kernel (``csrc/depth_render.cu``) runs one thread per pixel on a
-2-D grid, stages the 22 + 12 S parameter block in shared memory, reads
-the bool mask as bytes and masks the ragged edge itself.  It is memory-
-and launch-bound (0.3 MB of mask read, 1.2 MB of depth written per
-480x640 frame); it reads and writes each pixel once, coalesced.  The
+2-D grid.  Each block's prologue stages the camera, pose, ground plane and
+per-wall terms in shared memory (one thread per wall, from the pop-up's
+own tensors), so a render is one launch with no parameter packing; the
+bool mask is read as bytes and the ragged edge is masked per thread.  It
+is memory- and launch-bound (0.3 MB of mask read, 1.2 MB of depth written
+per 480x640 frame); it reads and writes each pixel once, coalesced.  The
 plain version is :func:`..popup.popup.depth_from_popup`.
 """
 
@@ -14,43 +16,18 @@ from __future__ import annotations
 
 import torch
 
-from .._device import const
 from ._build import check, library
 
-# header: fx fy cx cy | R_wc (9) | t_wc (3) | ground_c (4) | max_depth,
-# wall_height; per wall: n (3) | valid | num | e0 (2) | d_unit (2) |
-# seg_len | lo_pad | hi_pad
-HDR = 22
-PER_WALL = 12
 
-
-def pack_params(K, res, R_wc, t_wc, max_depth: float, wall_height: float,
-                extent_pad: float) -> torch.Tensor:
-    """The kernel's (22 + 12 S,) f32 parameter block, built on the
-    device of the inputs (no host sync)."""
-    f32 = torch.float32
-    dev = t_wc.device
-    n = res.planes_w[:, :3]
-    d = res.planes_w[:, 3]
-    num = -(n @ t_wc + d)
-    e0 = res.endpoints_w[:, 0, :2]
-    seg = res.endpoints_w[:, 1, :2] - e0
-    seg_len = torch.sqrt(torch.clamp(torch.sum(seg * seg, dim=-1), min=1e-12))
-    d_unit = seg / seg_len[:, None]
-    far = torch.full((), max_depth, dtype=f32, device=dev)
-    pad = torch.full((), extent_pad, dtype=f32, device=dev)
-    lo_pad = torch.where(res.clipped[:, 0], far, pad)
-    hi_pad = torch.where(res.clipped[:, 1], far, pad)
-    per_wall = torch.cat(
-        [n, res.valid.to(f32)[:, None], num[:, None], e0, d_unit,
-         seg_len[:, None], lo_pad[:, None], hi_pad[:, None]], dim=-1,
-    ).reshape(-1)
-    return torch.cat([
-        torch.stack([K.fx, K.fy, K.cx, K.cy]).to(device=dev, dtype=f32),
-        R_wc.reshape(9).to(f32), t_wc.to(f32), res.ground_c.to(f32),
-        const([max_depth, wall_height], f32, dev),
-        per_wall.to(f32),
-    ])
+def _operand(x: torch.Tensor, shape, dtype, dev, name: str) -> torch.Tensor:
+    if x.device != dev:
+        raise ValueError(f"depth_render: {name} on {x.device}, mask on {dev}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"depth_render: {name} has shape {tuple(x.shape)}, "
+                         f"want {tuple(shape)}")
+    if x.dtype != dtype:
+        raise ValueError(f"depth_render: {name} must be {dtype}")
+    return x.contiguous()
 
 
 def depth_render(K, res, ground_mask: torch.Tensor, R_wc: torch.Tensor,
@@ -65,26 +42,35 @@ def depth_render(K, res, ground_mask: torch.Tensor, R_wc: torch.Tensor,
         return depth_from_popup(K, res, ground_mask, R_wc, t_wc,
                                 max_depth=max_depth, wall_height=wall_height,
                                 extent_pad=extent_pad)
-    if ground_mask.device.type != "cuda" or t_wc.device != ground_mask.device:
-        raise ValueError("depth_render: inputs must lie on one CUDA device")
+    dev = ground_mask.device
+    if dev.type != "cuda":
+        raise ValueError(f"depth_render: unsupported device {dev}")
     if ground_mask.dtype != torch.bool or ground_mask.ndim != 2:
         raise ValueError("depth_render: ground_mask must be (H, W) bool")
     if not ground_mask.is_contiguous():
         raise ValueError("depth_render: ground_mask must be contiguous")
     H, W = ground_mask.shape
     S = res.planes_w.shape[0]
-    params = pack_params(K, res, R_wc, t_wc, max_depth, wall_height,
-                         extent_pad)
-    if params.shape != (HDR + PER_WALL * S,):
-        raise ValueError(f"depth_render: parameter block {params.shape}")
-    out = torch.empty((H, W), dtype=torch.float32, device=ground_mask.device)
+    f32, b8 = torch.float32, torch.bool
+    ins = [_operand(x, (), f32, dev, n)
+           for x, n in zip(K, ("fx", "fy", "cx", "cy"))]
+    ins += [
+        _operand(R_wc, (3, 3), f32, dev, "R_wc"),
+        _operand(t_wc, (3,), f32, dev, "t_wc"),
+        _operand(res.ground_c, (4,), f32, dev, "ground_c"),
+        _operand(res.planes_w, (S, 4), f32, dev, "planes_w"),
+        _operand(res.endpoints_w, (S, 2, 3), f32, dev, "endpoints_w"),
+        _operand(res.clipped, (S, 2), b8, dev, "clipped"),
+        _operand(res.valid, (S,), b8, dev, "valid"),
+    ]
+    out = torch.empty((H, W), dtype=f32, device=dev)
     lib = library()
-    stream = torch.cuda.current_stream(ground_mask.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     depth_render.launches += 1
-    check(lib.popup_depth_render(params.data_ptr(), S, ground_mask.data_ptr(),
-                                 out.data_ptr(), H, W,
-                                 float(max_depth) * 1e6, stream),
-          "depth_render")
+    check(lib.popup_depth_render(
+        *(x.data_ptr() for x in ins), S, ground_mask.data_ptr(),
+        out.data_ptr(), H, W, float(max_depth), float(wall_height),
+        float(extent_pad), stream), "depth_render")
     return out
 
 

@@ -36,8 +36,10 @@ _KINDS = {"none": 0, "huber": 1, "cauchy": 2}
 
 
 def smem_bytes(W: int, L: int, F: int, O: int, P: int) -> int:
-    """Shared memory of the kernel at these sizes (mirrors
-    ``make_layout`` in csrc/fused_gn.cu)."""
+    """Shared memory of the kernel at these sizes: the total of
+    ``make_layout`` in csrc/fused_gn.cu, kept here so the gate works
+    without the built library (tests/test_torch_cuda.py and chip_smoke.py
+    hold the two equal)."""
     words = (36 * W * W + 36 * W * L + 31 * W + 20 * L + 33 * F
              + 81 * (O + P) + 48 * P + 8)
     return 4 * words

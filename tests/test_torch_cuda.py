@@ -9,6 +9,8 @@ the CPU parity tests' own: K4 2e-4, K2 rtol 1e-4 / atol 1e-3, K1 5e-3 on
 the window (1e-3 relative on the marginal).
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -56,6 +58,21 @@ def test_kernel_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError):
         cholesky.chol_solve(S[:8, :8].double(),
                             torch.ones(8, device=cuda_device).double())
+    d = cuda_device
+    res = SimpleNamespace(
+        planes_w=torch.zeros(2, 4, device=d),
+        endpoints_w=torch.zeros(2, 2, 3, device=d),
+        clipped=torch.zeros(2, 2, dtype=torch.bool, device=d),
+        valid=torch.zeros(2, dtype=torch.bool, device=d),
+        ground_c=torch.zeros(4, device=d))
+    K = Intrinsics.create(1.0, 1.0, 0.0, 0.0, device=d)
+    m = torch.ones(4, 4, dtype=torch.bool, device=d)
+    with pytest.raises(ValueError):
+        depth_render.depth_render(K, res, m, torch.eye(3, device=d).double(),
+                                  torch.zeros(3, device=d))
+    with pytest.raises(ValueError):
+        depth_render.depth_render(K, res, m, torch.eye(3, device=d),
+                                  torch.zeros(3))
 
 
 @pytest.mark.parametrize("step,frame", [(1, 40), (1, 120), (4, 60)])
@@ -113,6 +130,17 @@ def test_fused_gn_kernel_matches_plain(cuda_device, marg, full, robust):
     if marg:
         assert_close(out_k[2], out_p[2], 1e-3 * float(out_p[2].abs().max()),
                      what="m_sqrt")
+
+
+@pytest.mark.parametrize("shape", [(8, 64, 72, 7, 1), (4, 16, 20, 3, 1),
+                                   (12, 96, 108, 11, 1)])
+def test_fused_gn_gate_matches_kernel_layout(cuda_device, shape):
+    """The Python shape gate sizes the same shared-memory layout as the
+    kernel's make_layout."""
+    from pop_up_slam_tpu_torch.ops import _build
+
+    lib = _build.library()
+    assert lib.popup_fused_gn_smem_bytes(*shape) == fused_gn.smem_bytes(*shape)
 
 
 def test_fused_gn_kernel_is_deterministic(cuda_device):
