@@ -215,10 +215,10 @@ def linearize(window: Window, factors: Factors, analytic_planes: bool = False,
     bp.index_put_((oj,), _grad(Jj, r_o), accumulate=True)
     cost = 0.5 * torch.sum(rho_o)
 
-    # --- plane observations ---
-    from ..ops.plane_jacobians import plane_terms_analytic
+    # --- plane observations (K5 on CUDA tensors) ---
+    from ..ops.plane_jacobians import plane_terms
 
-    r_f, Jp, Jl = plane_terms_analytic(window, factors.planes)
+    r_f, Jp, Jl = plane_terms(window, factors.planes)
     r_f, Jp, Jl, rho_f = apply_weights(robust.plane, r_f, Jp, Jl)
     pi_, li_ = factors.planes.pose_idx.long(), factors.planes.lm_idx.long()
     Hpp.index_put_((pi_, pi_), _hess(Jp, Jp), accumulate=True)

@@ -22,8 +22,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("chol_solve.cu", "depth_render.cu", "fused_gn.cu")
-HEADERS = ("chol.cuh", "lie.cuh")
+SOURCES = ("chol_solve.cu", "depth_render.cu", "fused_gn.cu",
+           "plane_terms.cu", "schur_reduce.cu")
+HEADERS = ("chol.cuh", "lie.cuh", "plane_factor.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +37,10 @@ _SIGNATURES = {
     "popup_fused_gn_smem_bytes": [_I, _I, _I, _I, _I],
     "popup_fused_gn": [_P] * 14 + [_F] + [_I] * 6
     + [_I, _F, _I, _F, _I, _F] + [_P] * 7,
+    "popup_plane_terms": [_P] * 11 + [_I, _I, _I, _P],
+    "popup_schur_small_smem_bytes": [_I],
+    "popup_schur_reduce_small": [_P] * 8 + [_I, _I, _P],
+    "popup_schur_gemm": [_P] * 4 + [_I, _I, _P],
 }
 
 _lib = None

@@ -1,9 +1,18 @@
-"""Analytic, factor-batched Jacobians of the pose-plane measurement.
+"""K5: analytic, factor-batched Jacobians of the pose-plane measurement
+(CUDA) and their plain PyTorch version.
 
-Port of ``plane_terms_analytic`` from
-``pop_up_slam_tpu/ops/plane_jacobians.py`` (the closed form production
-uses).  The reference's Pallas twin of the same math, K5
-(``plane_terms_pallas``), is not ported yet; see ROADMAP.md.
+:func:`plane_terms_analytic` ports ``plane_terms_analytic`` from
+``pop_up_slam_tpu/ops/plane_jacobians.py`` (the closed form the reference
+linearizes with) and is the plain version of :func:`plane_terms`, whose
+CUDA kernel (``csrc/plane_terms.cu`` over ``csrc/plane_factor.cuh``, the
+routine the fused GN kernel shares) replaces the reference's Pallas
+kernel ``plane_terms_pallas`` (``plane_jacobians.py:315``, kernel
+``_plane_kernel``).  One thread per factor gathers its pose and landmark
+by index and writes r, Jp and Jl in place; the Pallas wrapper's
+42-channel lane packing is not carried over.  At F = 72 factors (~530
+operations and ~180 bytes each) the kernel is bound by its launch, not by
+bytes or operations; the design is one launch with no host-side
+preparation.
 
 With pose retraction ``T' = T_wc e^xi`` the camera-frame plane linearizes
 as n_c(phi) = n_c0 + hat(n_c0) phi, d_c(rho) = d_c0 + n_c0 . rho; with
@@ -17,6 +26,7 @@ import torch
 
 from ..geometry import plane as plane_mod
 from ..geometry import se3
+from ._build import check, library
 
 
 def plane_terms_analytic(window, factors):
@@ -88,3 +98,47 @@ def plane_terms_analytic(window, factors):
     zero = torch.zeros((), dtype=r.dtype, device=r.device)
     return (torch.where(v, r, zero), torch.where(v[..., None], Jp, zero),
             torch.where(v[..., None], Jl, zero))
+
+
+def plane_terms(window, factors):
+    """(r (F,3), Jp (F,3,6), Jl (F,3,3)) of every plane factor, whitened,
+    zero where invalid.  CUDA tensors launch K5; CPU tensors run
+    :func:`plane_terms_analytic`."""
+    dev = window.t.device
+    if dev.type == "cpu":
+        return plane_terms_analytic(window, factors)
+    if dev.type != "cuda":
+        raise ValueError(f"plane_terms: unsupported device {dev}")
+    W, L = window.window_size, window.max_landmarks
+    F = factors.valid.shape[0]
+    f32 = torch.float32
+    ins = [
+        (window.R, (W, 3, 3), f32), (window.t, (W, 3), f32),
+        (window.planes, (L, 4), f32),
+        (factors.pose_idx.to(torch.int32), (F,), torch.int32),
+        (factors.lm_idx.to(torch.int32), (F,), torch.int32),
+        (factors.pi_meas, (F, 4), f32),
+        (factors.sqrt_info, (F, 3, 3), f32), (factors.valid, (F,), torch.bool),
+    ]
+    for x, shape, dtype in ins:
+        if x.device != dev:
+            raise ValueError("plane_terms: all inputs must lie on one device")
+        if tuple(x.shape) != shape or x.dtype != dtype:
+            raise ValueError(f"plane_terms: got {tuple(x.shape)} {x.dtype}, "
+                             f"want {shape} {dtype}")
+    ins = [x.contiguous() for x, _, _ in ins]
+    r = torch.empty((F, 3), dtype=f32, device=dev)
+    Jp = torch.empty((F, 3, 6), dtype=f32, device=dev)
+    Jl = torch.empty((F, 3, 3), dtype=f32, device=dev)
+    if F == 0:
+        return r, Jp, Jl
+    lib = library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    plane_terms.launches += 1
+    check(lib.popup_plane_terms(
+        *(x.data_ptr() for x in ins), r.data_ptr(), Jp.data_ptr(),
+        Jl.data_ptr(), F, W, L, stream), "plane_terms")
+    return r, Jp, Jl
+
+
+plane_terms.launches = 0

@@ -8,8 +8,11 @@ fixed-shape state:
 3. masked data association against the landmark store,
 4. evict / insert landmarks,
 5. on a keyframe: slide the window, record the odometry factor and the
-   frame's plane factors, and re-solve the window (the fused GN kernel
-   on CUDA, the per-op Gauss-Newton path otherwise),
+   frame's plane factors, and re-solve the window: ``solver="gn"`` with
+   the fused GN kernel on CUDA (the per-op Gauss-Newton path otherwise);
+   ``"lm"`` / ``"dogleg"`` per-op, with the plane-Jacobian kernel in each
+   linearization and the Schur kernels as the reduced solve
+   (``make_solve_fn``),
 6. update landmark extents / observation counts.
 
 The reference's three ``lax.cond``s (merge, evict, keyframe) are host
@@ -43,7 +46,7 @@ from ..mapping import (
     update_extents,
 )
 from ..popup.popup import PopupPlanes
-from ..solver import gn_solve
+from ..solver import dogleg_solve, gn_solve, lm_solve
 from ..solver.schur import make_solve_fn
 
 
@@ -61,7 +64,7 @@ class SlamConfig(NamedTuple):
     plane_sigma_d: float = 0.02   # m
     min_obs_for_extent: int = 1
     assoc: AssocConfig = AssocConfig()
-    solver: str = "gn"            # gn (lm | dogleg not ported yet)
+    solver: str = "gn"            # gn | lm | dogleg
     analytic_planes: bool = True
     pallas: str = "auto"          # reduced-system solver (solver/schur.py)
     # Fused GN kernel (ops/fused_gn.py): "auto" = on CUDA when the window
@@ -289,10 +292,8 @@ def _use_fused(cfg: SlamConfig, device: torch.device) -> bool:
 def _keyframe_update(state: SlamState, det: FrameDetections,
                      cfg: SlamConfig) -> SlamState:
     """Insert the current frame as a keyframe and re-solve the window."""
-    if cfg.solver != "gn":
-        raise NotImplementedError(
-            f"solver={cfg.solver!r} is not ported yet (ROADMAP.md); use 'gn'"
-        )
+    if cfg.solver not in ("gn", "lm", "dogleg"):
+        raise ValueError(f"unknown solver '{cfg.solver}'")
     W, L = cfg.window_size, cfg.max_landmarks
     window, store = state.window, state.store
     dev = window.t.device
@@ -355,7 +356,7 @@ def _keyframe_update(state: SlamState, det: FrameDetections,
 
     # --- slide the window when full ---
     full = state.n_kf >= W
-    fused = _use_fused(cfg, dev)
+    fused = cfg.solver == "gn" and _use_fused(cfg, dev)
     marg_block = None
     if cfg.marginalize and fused:
         from ..ops.fused_gn import pack_marg
@@ -436,11 +437,23 @@ def _keyframe_update(state: SlamState, det: FrameDetections,
                 state.window, factors, iters=cfg.gn_iters,
                 damping=cfg.damping, robust=cfg.robust,
             )
-    else:
+    elif cfg.solver == "gn":
         window_opt, _ = gn_solve(
             state.window, factors, iters=cfg.gn_iters, damping=cfg.damping,
             solve_fn=make_solve_fn(cfg.pallas),
             analytic_planes=cfg.analytic_planes, robust=cfg.robust,
+        )
+    elif cfg.solver == "lm":
+        window_opt, _ = lm_solve(
+            state.window, factors, iters=cfg.gn_iters,
+            lam0=max(cfg.damping, 1e-6), solve_fn=make_solve_fn(cfg.pallas),
+            analytic_planes=cfg.analytic_planes, robust=cfg.robust,
+        )
+    else:
+        window_opt, _ = dogleg_solve(
+            state.window, factors, iters=cfg.gn_iters,
+            solve_fn=make_solve_fn(cfg.pallas), robust=cfg.robust,
+            analytic_planes=cfg.analytic_planes,
         )
 
     return state._replace(

@@ -1,3 +1,4 @@
+from .dogleg import dogleg_solve  # noqa: F401
 from .gauss_newton import (  # noqa: F401
     SolveStats,
     apply_update,
@@ -5,4 +6,10 @@ from .gauss_newton import (  # noqa: F401
     lm_solve,
     sanitize_step,
 )
-from .schur import SchurSolution, inv3x3, make_solve_fn, solve_schur  # noqa: F401
+from .schur import (  # noqa: F401
+    SchurSolution,
+    inv3x3,
+    make_solve_fn,
+    solve_dense,
+    solve_schur,
+)

@@ -1,8 +1,11 @@
-"""Windowed Gauss-Newton over poses + planes.
+"""Windowed Gauss-Newton / Levenberg-Marquardt over poses + planes.
 
-Port of ``gn_solve``, ``sanitize_step`` and ``apply_update`` from
-``pop_up_slam_tpu/solver/gauss_newton.py``; the reference's ``lax.scan``
-over iterations is a Python loop.  ``lm_solve`` is not ported yet.
+Port of ``gn_solve``, ``lm_solve``, ``sanitize_step`` and
+``apply_update`` from ``pop_up_slam_tpu/solver/gauss_newton.py``; the
+reference's ``lax.scan`` over iterations is a Python loop.  LM's
+accept/reject is branch-free (``torch.where``) and its lambda a 0-d
+tensor on the window's device, so an iteration never reads the device
+from the host.
 """
 
 from __future__ import annotations
@@ -76,7 +79,48 @@ def gn_solve(window: Window, factors: Factors, iters: int = 5,
     )
 
 
-def lm_solve(*args, **kwargs):
-    raise NotImplementedError(
-        "lm_solve is not ported yet; see the ROADMAP.md queue"
-    )
+def stack_stats(costs, norms, lams, accepted, dev) -> SolveStats:
+    """SolveStats from per-iteration lists of 0-d tensors."""
+    def stack(xs, dtype=torch.float32):
+        return (torch.stack(xs) if xs
+                else torch.zeros((0,), dtype=dtype, device=dev))
+
+    return SolveStats(torch.stack(costs), stack(norms), stack(lams),
+                      stack(accepted, torch.bool))
+
+
+def select_window(accept: torch.Tensor, a: Window, b: Window) -> Window:
+    """``a`` where the 0-d bool ``accept`` holds, else ``b``, field by
+    field, on the device."""
+    return Window(*(torch.where(accept, x, y) for x, y in zip(a, b)))
+
+
+def lm_solve(window: Window, factors: Factors, iters: int = 8,
+             lam0: float = 1e-4, lam_up: float = 10.0, lam_down: float = 0.3,
+             solve_fn=solve_schur, analytic_planes: bool = False,
+             robust=None):
+    """Levenberg-Marquardt with branch-free accept/reject: a step is kept
+    when it lowers the cost (lambda x ``lam_down``), else the window is
+    kept (lambda x ``lam_up``); lambda is clipped to [1e-9, 1e6].
+    Returns (window, SolveStats)."""
+    dev = window.t.device
+    lam = torch.full((), lam0, dtype=torch.float32, device=dev)
+    cost = total_cost(window, factors, robust=robust)
+    costs, norms, lambdas, accepted = [], [], [], []
+    for _ in range(iters):
+        lin = linearize(window, factors, analytic_planes=analytic_planes,
+                        robust=robust)
+        sol = solve_fn(lin, window, lam)
+        w_try = apply_update(window, sol.dxp, sol.dxl)
+        cost_try = total_cost(w_try, factors, robust=robust)
+        accept = cost_try < cost
+        costs.append(cost)
+        norms.append(torch.sqrt(torch.sum(sol.dxp ** 2)
+                                + torch.sum(sol.dxl ** 2)))
+        lambdas.append(lam)
+        accepted.append(accept)
+        window = select_window(accept, w_try, window)
+        lam = torch.clamp(torch.where(accept, lam * lam_down, lam * lam_up),
+                          1e-9, 1e6)
+        cost = torch.where(accept, cost_try, cost)
+    return window, stack_stats(costs + [cost], norms, lambdas, accepted, dev)

@@ -8,7 +8,9 @@ H = [[Hpp, Hpl], [Hpl^T, Hll]] and Hll block-diagonal 3x3 per plane:
     S dxp = -rp ;   dxl = -Hll^-1 (bl + Hpl^T dxp)
 
 This is the per-op path; the fused GN kernel (:mod:`..ops.fused_gn`)
-runs the same chain in one launch and is held against it.
+runs the same chain in one launch and is held against it, and the Schur
+kernels (:mod:`..ops.schur`) are the reduced solve that
+:func:`make_solve_fn` selects for LM, dog-leg and the per-op GN path.
 """
 
 from __future__ import annotations
@@ -163,15 +165,52 @@ def cho_solve_small(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return X
 
 
+def _auto_solve(lin: Linearization, window: Window, damping=1e-6):
+    """The Schur kernels on CUDA tensors, :func:`solve_schur` on CPU
+    tensors (the reference's ``"auto"`` is also pure jnp off the TPU)."""
+    if lin.bp.device.type == "cuda":
+        from ..ops.schur import schur_reduce
+
+        return schur_reduce(lin, window, damping)
+    return solve_schur(lin, window, damping)
+
+
 def make_solve_fn(pallas: str = "auto"):
-    """Select the reduced-system solver.  ``"auto"`` and ``"off"`` give
-    :func:`solve_schur`; the reference's ``"on"`` route is its
-    Pallas-Schur kernel (K3), which is not ported yet (ROADMAP.md)."""
-    if pallas in ("auto", "off"):
+    """Select the reduced-system solver: ``"off"`` gives
+    :func:`solve_schur`; ``"on"`` the Schur kernels
+    (:func:`..ops.schur.schur_reduce`: K3a, or K3b + K4, on CUDA tensors,
+    their plain version on CPU tensors); ``"auto"`` the kernels on CUDA
+    tensors and :func:`solve_schur` on CPU tensors.  The reference's
+    size band for ``"auto"`` (``PALLAS_CROSSOVER``/``PALLAS_MAX_N6``) was
+    measured on another chip and is not carried over."""
+    if pallas == "off":
         return solve_schur
     if pallas == "on":
-        raise NotImplementedError(
-            "the Schur-reduction kernel (K3) is not ported yet; see "
-            "ROADMAP.md"
-        )
+        from ..ops.schur import schur_reduce
+
+        return schur_reduce
+    if pallas == "auto":
+        return _auto_solve
     raise ValueError(f"pallas must be auto|on|off, got {pallas!r}")
+
+
+def solve_dense(lin: Linearization, window: Window, damping=1e-6):
+    """Reference: solve the full (6W + 3L) dense system without Schur
+    elimination (the tests' check of the Schur path).  Returns
+    (dxp (W, 6), dxl (L, 3))."""
+    W, L = lin.bp.shape[0], lin.bl.shape[0]
+    dt = lin.bp.dtype
+    n6 = 6 * W
+    Hpl = lin.Hpl.permute(0, 2, 1, 3).reshape(n6, 3 * L)
+    H = torch.cat([
+        torch.cat([lin.Hpp.permute(0, 2, 1, 3).reshape(n6, n6), Hpl], 1),
+        torch.cat([Hpl.T, torch.block_diag(*lin.Hll.unbind(0))], 1),
+    ], 0)
+    b = torch.cat([lin.bp.reshape(-1), lin.bl.reshape(-1)])
+    free_p = window.pose_valid & (~window.pose_fixed)
+    mask = torch.cat([free_p.repeat_interleave(6),
+                      window.lm_valid.repeat_interleave(3)]).to(dt)
+    H = H * mask[:, None] * mask[None, :]
+    H = H + torch.diag((1.0 - mask) + mask * damping)
+    dx = torch.linalg.solve(H, -(b * mask))
+    return dx[:n6].reshape(W, 6), dx[n6:].reshape(L, 3)

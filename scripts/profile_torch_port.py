@@ -1,10 +1,12 @@
-"""Profile the PyTorch port's main path on one GPU.
+"""Profile the PyTorch port's main path (or a solver path) on one GPU.
 
     python3 scripts/profile_torch_port.py [--frames 32] [--repeats 3]
+        [--solver gn|lm|dogleg] [--window 8]
 
-Runs the production configuration of ``chip_smoke.py`` (480x640 corridor
-masks, ``SlamConfig()`` widths, every frame a keyframe, chunks of 16,
-depth rendered per frame):
+Runs a path of ``chip_smoke.py``: 480x640 corridor masks, ``SlamConfig()``
+widths (``--window`` poses), every frame a keyframe, chunks of 16; with
+``--solver gn`` (the main path) depth is rendered per frame, with ``lm``
+or ``dogleg`` it is not, as in ``chip_smoke.py``:
 
 1. ``--repeats`` untraced passes over all 144 frames: frames/s on the
    host clock (each pass ends in ``torch.cuda.synchronize()``);
@@ -35,7 +37,9 @@ import warnings
 import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OWN_KERNELS = ("fused_gn_kernel", "depth_render_kernel", "chol_solve_kernel")
+OWN_KERNELS = ("fused_gn_kernel", "depth_render_kernel", "chol_solve_kernel",
+               "schur_small_kernel", "schur_gemm_kernel",
+               "plane_terms_kernel")
 
 
 def _device_events(prof):
@@ -61,6 +65,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=32)
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--solver", choices=("gn", "lm", "dogleg"), default="gn")
+    ap.add_argument("--window", type=int, default=8)
     args = ap.parse_args()
 
     import torch
@@ -90,13 +96,17 @@ def main() -> int:
     oR, ot = z["odom_R"], z["odom_t"]
     pcfg = pp.PopupConfig()
     scfg = SlamConfig(max_det=pcfg.max_segments + 1, kf_trans=0.0,
-                      kf_rot=0.0)
+                      kf_rot=0.0, solver=args.solver,
+                      window_size=args.window)
+    depth = args.solver == "gn"
     K = Intrinsics.create(320.0, 320.0, 320.0, 240.0, device="cuda")
+    print(json.dumps({"solver": args.solver, "window_size": args.window,
+                      "depth": depth}))
 
     def run(frames):
         st = slam_init(scfg, z["R0"], z["t0"])
         out = run_sequence_chunked(st, masks_d[:frames], oR[:frames],
-                                   ot[:frames], K, pcfg, scfg, depth=True)
+                                   ot[:frames], K, pcfg, scfg, depth=depth)
         torch.cuda.synchronize()
         return out
 

@@ -165,6 +165,73 @@ def ba_problem(seed: int, W: int = 6, L: int = 9, prior_gauge: bool = False,
     return window, dict(odom=odom, planes=planes, priors=priors)
 
 
+def random_problem(seed: int, W: int = 6, L: int = 10, F: int = 24):
+    """Random poses and planes, F plane factors on random (pose, landmark)
+    pairs with noisy measurements, sqrt-info diag(20, 20, 10), ~15% of the
+    factors and the last two landmarks invalid, pose 0 fixed: numpy
+    (window, plane-factor) dicts (``tests/test_ops.py::_random_problem``
+    drawn with numpy)."""
+    from pop_up_slam_tpu_torch.geometry import plane, se3
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def t_(x):
+        return torch.as_tensor(np.asarray(x, f32))
+
+    R = se3.so3_exp(t_(0.3 * rng.normal(size=(W, 3))))
+    t = t_(rng.normal(size=(W, 3)))
+    planes = plane.normalize(t_(rng.normal(size=(L, 4))))
+    pose_idx = rng.integers(0, W, size=F).astype(np.int32)
+    lm_idx = rng.integers(0, L - 2, size=F).astype(np.int32)
+    R_cw, t_cw = se3.se3_inverse(R[pose_idx], t[pose_idx])
+    pi_c = plane.transform(planes[lm_idx], R_cw, t_cw)
+    pi_meas = plane.retract(pi_c, t_(0.05 * rng.normal(size=(F, 3))))
+    window = dict(R=R.numpy(), t=t.numpy(), planes=planes.numpy(),
+                  pose_valid=np.ones(W, bool),
+                  pose_fixed=np.arange(W) == 0,
+                  lm_valid=np.arange(L) < L - 2)
+    pf = dict(pose_idx=pose_idx, lm_idx=lm_idx, pi_meas=pi_meas.numpy(),
+              sqrt_info=np.broadcast_to(np.diag([20.0, 20.0, 10.0]).astype(
+                  f32), (F, 3, 3)).copy(),
+              valid=rng.random(F) < 0.85)
+    return window, pf
+
+
+def random_system(seed: int, W: int = 5, L: int = 9, F: int = 40):
+    """:func:`random_problem` plus an odometry chain with random
+    measurements and a prior on pose 0: numpy (window, factors) dicts
+    whose normal equations are SPD (``tests/test_ops.py::
+    _random_spd_system`` drawn with numpy)."""
+    from pop_up_slam_tpu_torch.geometry import se3
+
+    window, pf = random_problem(seed, W, L, F)
+    rng = np.random.default_rng(seed + 1000)
+    f32 = np.float32
+    eye6 = np.broadcast_to(np.eye(6, dtype=f32), (W - 1, 6, 6)).copy()
+    odom = dict(
+        i=np.arange(W - 1, dtype=np.int32), j=np.arange(1, W, dtype=np.int32),
+        R_meas=se3.so3_exp(torch.as_tensor(
+            0.1 * rng.normal(size=(W - 1, 3)).astype(f32))).numpy(),
+        t_meas=rng.normal(size=(W - 1, 3)).astype(f32), sqrt_info=eye6,
+        valid=np.ones(W - 1, bool))
+    priors = dict(idx=np.zeros(1, np.int32), R=window["R"][:1],
+                  t=window["t"][:1], sqrt_info=np.eye(6, dtype=f32)[None],
+                  valid=np.ones(1, bool))
+    return window, dict(odom=odom, planes=pf, priors=priors)
+
+
+def indefinite(lin, p: int = 2):
+    """``lin`` with direction 0 of free pose ``p`` decoupled and given
+    negative curvature: its reduced pivot is indefinite."""
+    Hpp, Hpl = lin.Hpp.clone(), lin.Hpl.clone()
+    Hpp[p, :, 0, :] = 0.0
+    Hpp[:, p, :, 0] = 0.0
+    Hpp[p, p, 0, 0] = -1.0
+    Hpl[p, :, 0, :] = 0.0
+    return lin._replace(Hpp=Hpp, Hpl=Hpl)
+
+
 def to_jax(cls, d):
     """A numpy dict (or nested dicts) -> the reference's NamedTuple."""
     import jax.numpy as jnp

@@ -6,7 +6,9 @@ file imports no JAX, so it runs on a GPU machine without it:
 
 (``--noconftest``: the suite's conftest configures JAX.)  Tolerances are
 the CPU parity tests' own: K4 2e-4, K2 rtol 1e-4 / atol 1e-3, K1 5e-3 on
-the window (1e-3 relative on the marginal).
+the window (1e-3 relative on the marginal), K5 rtol 1e-5 / atol 1e-5,
+K3a rtol 1e-4 / atol 1e-4 on the steps (rtol 1e-5 / atol 1e-4 on S), K3b
+with K4 rtol 1e-3 / atol 5e-3.
 """
 
 from types import SimpleNamespace
@@ -16,11 +18,15 @@ import pytest
 import torch
 
 from _torch_parity import (REPO, assert_close, ba_problem, corridor_K,
-                           corridor_inputs, cuda_device, spd_system)
+                           corridor_inputs, cuda_device, indefinite,
+                           random_problem,
+                           random_system, spd_system)
 from pop_up_slam_tpu_torch import convert
 from pop_up_slam_tpu_torch.factors.robust import RobustConfig, RobustKernel
 from pop_up_slam_tpu_torch.geometry.camera import Intrinsics
+from pop_up_slam_tpu_torch.factors import graph
 from pop_up_slam_tpu_torch.ops import cholesky, depth_render, fused_gn
+from pop_up_slam_tpu_torch.ops import plane_jacobians, schur
 from pop_up_slam_tpu_torch.pipeline import slam as tslam
 from pop_up_slam_tpu_torch.pipeline.offline import run_sequence_chunked
 from pop_up_slam_tpu_torch.popup import popup as tpp
@@ -170,3 +176,95 @@ def test_main_path_prefix_on_the_card(cuda_device):
     assert depth_render.depth_render.launches - k2 == 16
     assert depth.shape == (16, 480, 640) and torch.isfinite(depth).all()
     assert_close(t, ref["t"][:16], 0.015, what="t")
+
+
+def _window_factors(w, f, dev):
+    return (convert.window_from_numpy(w, dev),
+            convert.factors_from_numpy(f, dev))
+
+
+@pytest.mark.parametrize("shape", [(8, 64, 72), (6, 10, 37)])
+def test_plane_terms_kernel_matches_plain(cuda_device, shape):
+    """The chip-smoke shapes (W, L, F), random problems with invalid
+    factors (the reference kernel test's problem: on a 10 m corridor at
+    1/0.02 whitening the distance residual cancels in f32 far above
+    1e-5 in either version)."""
+    W, L, F = shape
+    w, pf = random_problem(3, W, L, F)
+    pf["valid"][:3] = False
+    window = convert.window_from_numpy(w, cuda_device)
+    pf = graph.PlaneFactors(*(torch.as_tensor(pf[k], device=cuda_device)
+                              for k in graph.PlaneFactors._fields))
+    before = plane_jacobians.plane_terms.launches
+    out_k = plane_jacobians.plane_terms(window, pf)
+    assert plane_jacobians.plane_terms.launches == before + 1
+    out_p = plane_jacobians.plane_terms_analytic(window, pf)
+    torch.cuda.synchronize()
+    for a, b, what in zip(out_k, out_p, ("r", "Jp", "Jl")):
+        assert_close(a, b, 1e-5, rtol=1e-5, what=what)
+        assert not a[~pf.valid].any(), what
+
+
+@pytest.mark.parametrize("case", ["spd_W8", "indefinite_W8", "tiled_W23",
+                                  "tiled_W24"])
+def test_schur_reduce_kernels_match_plain(cuda_device, case):
+    W, L, F = {"spd_W8": (8, 64, 72), "indefinite_W8": (8, 64, 72),
+               "tiled_W23": (23, 9, 40), "tiled_W24": (24, 64, 216)}[case]
+    window, factors = _window_factors(*random_system(11, W, L, F),
+                                      cuda_device)
+    lin = graph.linearize(window, factors, analytic_planes=True)
+    if case.startswith("indefinite"):
+        lin = indefinite(lin)
+    lam = torch.full((), 1e-3, device=cuda_device)
+    counts = (schur.schur_reduce_small.launches, schur.schur_gemm.launches,
+              cholesky.chol_solve.launches)
+    sol_k = schur.schur_reduce(lin, window, lam)
+    sol_p = schur.schur_reduce_plain(lin, window, lam)
+    torch.cuda.synchronize()
+    after = (schur.schur_reduce_small.launches, schur.schur_gemm.launches,
+             cholesky.chol_solve.launches)
+    tiled = case.startswith("tiled")
+    assert after == tuple(c + d for c, d in zip(
+        counts, (0, 1, 1) if tiled else (1, 0, 0)))
+    tol = dict(rtol=1e-3, atol=5e-3) if tiled else dict(rtol=1e-4,
+                                                        atol=1e-4)
+    s_tol = tol if tiled else dict(rtol=1e-5, atol=1e-4)
+    assert_close(sol_k.S, sol_p.S, what="S", **s_tol)
+    assert_close(sol_k.dxp, sol_p.dxp, what="dxp", **tol)
+    assert_close(sol_k.dxl, sol_p.dxl, what="dxl", **tol)
+    if case.startswith("indefinite"):
+        assert float(sol_k.dxp[2, 0]) == 0.0
+
+
+def test_schur_reduce_small_is_deterministic(cuda_device):
+    """No atomics: two K3a launches agree bit for bit."""
+    window, factors = _window_factors(*random_system(5, 8, 64, 72),
+                                      cuda_device)
+    lin = graph.linearize(window, factors, analytic_planes=True)
+    lam = torch.full((), 1e-5, device=cuda_device)
+    _, B, G, Hpp, pm, rp = schur.reduce_operands(lin, window, lam)
+    a = schur.schur_reduce_small(Hpp, B, G, -rp, pm, lam)
+    b = schur.schur_reduce_small(Hpp, B, G, -rp, pm, lam)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_solver_prefix_on_the_card(cuda_device):
+    """16 production frames with ``solver="lm"``: K3a and K5 twice per
+    keyframe, no K1, and the trajectory on the JAX reference."""
+    masks, oR, ot, R0, t0 = corridor_inputs(1)
+    ref = np.load(f"{REPO}/pop_up_slam_tpu_torch/data/"
+                  "corridor_ref_solvers.npz")
+    cfg = tslam.SlamConfig(max_det=9, kf_trans=0.0, kf_rot=0.0, solver="lm")
+    st = tslam.slam_init(cfg, R0, t0, device=cuda_device)
+    before = (schur.schur_reduce_small.launches,
+              plane_jacobians.plane_terms.launches,
+              fused_gn.fused_gn_solve.launches)
+    st, (R, t) = run_sequence_chunked(
+        st, masks[:16], oR[:16], ot[:16],
+        Intrinsics.create(*corridor_K(1), device=cuda_device),
+        tpp.PopupConfig(), cfg)
+    after = (schur.schur_reduce_small.launches,
+             plane_jacobians.plane_terms.launches,
+             fused_gn.fused_gn_solve.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (32, 32, 0)
+    assert_close(t, ref["lm_t"][:16], 0.015, what="t")

@@ -61,7 +61,7 @@ def _marg(wj, fj, full):
 
 def test_plane_terms_analytic_matches_reference():
     wj, fj, wt, ft = _problem(1)
-    out_j = jpta(wj, fj.planes)
+    out_j = jax.jit(jpta)(wj, fj.planes)
     out_t = plane_terms_analytic(wt, ft.planes)
     for a, b, what in zip(out_t, out_j, ("r", "Jp", "Jl")):
         assert_close(a, b, 1e-4 * max(1.0, float(np.abs(b).max())), what=what)

@@ -4,12 +4,15 @@ CUDA kernels against their plain versions are in test_torch_cuda.py.
 
 - K4 Cholesky solve: plain vs ``chol_solve_pallas(interpret=True)`` at
   n=48 and 96, 2e-4 (as the reference's own kernel test), and the
-  skipped-direction rule exactly.
+  skipped-direction rule exactly.  The reference is compiled once, at
+  n=96: a smaller system is solved embedded in an identity of that size,
+  as the kernel itself pads to its 128-lane tile.
 - K2 depth render: plain vs ``depth_from_popup`` and
-  ``depth_render_pallas(interpret=True)`` on a 64x96 frame, rtol 1e-4 /
+  ``depth_render_pallas(interpret=True)`` on a 120x160 frame, rtol 1e-4 /
   atol 1e-3 (as the reference's own kernel test).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,11 +30,25 @@ from pop_up_slam_tpu_torch.ops import cholesky, depth_render
 
 # ---------------------------------------------------------------- K4
 
+_CHOL_N = 96
+
+
+def _chol_ref(S, b):
+    """The reference kernel's solution of S x = b (n <= 96), solved as the
+    block-diagonal [[S, 0], [0, I]] system of size 96."""
+    n = S.shape[0]
+    Sp = np.eye(_CHOL_N, dtype=np.float32)
+    Sp[:n, :n] = S
+    bp = np.zeros(_CHOL_N, np.float32)
+    bp[:n] = b
+    return np.asarray(chol_solve_pallas(jnp.asarray(Sp), jnp.asarray(bp),
+                                        interpret=True))[:n]
+
 
 @pytest.mark.parametrize("n", [48, 96])
 def test_chol_solve_plain_matches_reference(n):
     S, b = spd_system(n, n)
-    x_j = chol_solve_pallas(jnp.asarray(S), jnp.asarray(b), interpret=True)
+    x_j = _chol_ref(S, b)
     x_t = cholesky.chol_solve_plain(torch.as_tensor(S), torch.as_tensor(b))
     assert_close(x_t, x_j, 2e-4, rtol=2e-4, what="x")
     # the wrapper on CPU tensors is the plain version, and counts nothing
@@ -44,7 +61,7 @@ def test_chol_solve_skips_indefinite_directions():
     S = np.diag(np.array([4.0, -1.0, 9.0], np.float32))
     b = np.array([8.0, 5.0, 27.0], np.float32)
     x_t = cholesky.chol_solve_plain(torch.as_tensor(S), torch.as_tensor(b))
-    x_j = chol_solve_pallas(jnp.asarray(S), jnp.asarray(b), interpret=True)
+    x_j = _chol_ref(S, b)
     assert_close(x_t, x_j, 1e-5, what="x")
     np.testing.assert_allclose(x_t.numpy(), [2.0, 0.0, 3.0], atol=1e-5)
 
@@ -52,21 +69,19 @@ def test_chol_solve_skips_indefinite_directions():
 # ---------------------------------------------------------------- K2
 
 
-def _depth_case():
-    masks, _, _, _, _ = corridor_inputs(5)           # 96 x 128
-    mask = masks[60][16:80, 16:112]                 # 64 x 96 crop
-    ref = np.load("pop_up_slam_tpu_torch/data/corridor_ref.npz")
-    fx, fy, cx, cy = corridor_K(5)
-    K = (fx, fy, cx - 16, cy - 16)
-    return mask, K, ref["R"][60], ref["t"][60]
+_pop_up_jit = jax.jit(jpp.pop_up, static_argnames=("cfg",))
 
 
 def test_depth_render_plain_matches_reference():
-    mask, K, R, t = _depth_case()
+    masks, _, _, _, _ = corridor_inputs(4)           # 120 x 160
+    mask = masks[60]
+    ref = np.load("pop_up_slam_tpu_torch/data/corridor_ref.npz")
+    R, t = ref["R"][60], ref["t"][60]
+    K = corridor_K(4)
     cfg = dict(smooth_radius=3, nms_radius=5, min_cols=6)
     Kj = JK.create(*K)
-    res_j = jpp.pop_up(Kj, jnp.asarray(mask), jnp.asarray(R), jnp.asarray(t),
-                       jpp.PopupConfig(**cfg))
+    res_j = _pop_up_jit(Kj, jnp.asarray(mask), jnp.asarray(R), jnp.asarray(t),
+                        cfg=jpp.PopupConfig(**cfg))
     res_t = convert.popup_planes_from_numpy(np_tree(res_j), CPU)
     Kt = TK.create(*K, device="cpu")
     d_t = depth_render.depth_render(Kt, res_t, torch.as_tensor(mask),

@@ -15,12 +15,14 @@ along a world axis the sign of the fitted direction is set by rounding,
 and every consumer (overlap gates, extent unions, the depth render) is
 symmetric in the pair."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from _torch_parity import assert_close, corridor_K, corridor_inputs, salt
+from pop_up_slam_tpu.geometry import camera as jcam
 from pop_up_slam_tpu.geometry.camera import Intrinsics as JK
 from pop_up_slam_tpu.popup import popup as jpp
 from pop_up_slam_tpu_torch.geometry.camera import Intrinsics as TK
@@ -32,6 +34,20 @@ TOL = 1e-4
 
 _DISCRETE = ("n_points", "valid", "clipped", "boundary_v", "boundary_ok",
              "seg_id")
+
+# the reference pop-up, compiled once per configuration for the module
+_pop_up_jit = jax.jit(jpp.pop_up, static_argnames=("cfg",))
+
+
+def _pop_up_both(mask, R, t, cfg):
+    """(port, reference) pop-up of one frame at the 120x160 intrinsics."""
+    res_j = _pop_up_jit(JK.create(*corridor_K(STEP)), jnp.asarray(mask),
+                        jnp.asarray(R), jnp.asarray(t),
+                        cfg=jpp.PopupConfig(**cfg))
+    res_t = tpp.pop_up(TK.create(*corridor_K(STEP), device="cpu"),
+                       torch.as_tensor(mask), torch.as_tensor(R),
+                       torch.as_tensor(t), tpp.PopupConfig(**cfg))
+    return res_t, res_j
 
 
 def _frame(i, noise):
@@ -77,14 +93,7 @@ def _compare(res_t, res_j):
 @pytest.mark.parametrize("noise", [False, True])
 @pytest.mark.parametrize("i", [0, 50, 100, 130])
 def test_pop_up_matches_reference(i, noise):
-    mask, R, t = _frame(i, noise)
-    cfg_j = jpp.PopupConfig(**PCFG)
-    cfg_t = tpp.PopupConfig(**PCFG)
-    res_j = jpp.pop_up(JK.create(*corridor_K(STEP)), jnp.asarray(mask),
-                       jnp.asarray(R), jnp.asarray(t), cfg_j)
-    res_t = tpp.pop_up(TK.create(*corridor_K(STEP), device="cpu"),
-                       torch.as_tensor(mask), torch.as_tensor(R),
-                       torch.as_tensor(t), cfg_t)
+    res_t, res_j = _pop_up_both(*_frame(i, noise), PCFG)
     assert bool(res_t.valid.any())
     _compare(res_t, res_j)
 
@@ -94,14 +103,7 @@ def test_pop_up_two_levels():
     mask, R, t = _frame(70, noise=False)
     mask = mask.copy()
     mask[80:84, 40:120] = False        # an occluder splits the ground runs
-    cfg = dict(PCFG, levels=2)
-    res_j = jpp.pop_up(JK.create(*corridor_K(STEP)), jnp.asarray(mask),
-                       jnp.asarray(R), jnp.asarray(t),
-                       jpp.PopupConfig(**cfg))
-    res_t = tpp.pop_up(TK.create(*corridor_K(STEP), device="cpu"),
-                       torch.as_tensor(mask), torch.as_tensor(R),
-                       torch.as_tensor(t), tpp.PopupConfig(**cfg))
-    _compare(res_t, res_j)
+    _compare(*_pop_up_both(mask, R, t, dict(PCFG, levels=2)))
 
 
 @pytest.mark.parametrize("noise", [False, True])
@@ -122,12 +124,64 @@ def test_depth_from_popup_matches_reference():
     mask, R, t = _frame(60, noise=False)
     Kj = JK.create(*corridor_K(STEP))
     Kt = TK.create(*corridor_K(STEP), device="cpu")
-    res_j = jpp.pop_up(Kj, jnp.asarray(mask), jnp.asarray(R),
-                       jnp.asarray(t), jpp.PopupConfig(**PCFG))
-    res_t = tpp.pop_up(Kt, torch.as_tensor(mask), torch.as_tensor(R),
-                       torch.as_tensor(t), tpp.PopupConfig(**PCFG))
+    res_t, res_j = _pop_up_both(mask, R, t, PCFG)
     d_j = jpp.depth_from_popup(Kj, res_j, jnp.asarray(mask), jnp.asarray(R),
                                jnp.asarray(t))
     d_t = tpp.render_depth(Kt, res_t, torch.as_tensor(mask),
                            torch.as_tensor(R), torch.as_tensor(t))
     assert_close(d_t, d_j, 1e-3, rtol=1e-4, what="depth")
+
+
+def _empty_window_case():
+    """Frame 134 of the corridor at the pose the reference's LM run
+    predicted for it (its frame-133 output), full width."""
+    ref = np.load("pop_up_slam_tpu_torch/data/corridor_ref_solvers.npz")
+    masks, _, _, _, _ = corridor_inputs(1)
+    return masks[134], ref["lm_R"][133], ref["lm_t"][133]
+
+
+@jax.jit
+def _jax_boundary_points(mask, R, t):
+    """The reference pop-up's boundary points, validity and segments."""
+    cfg = jpp.PopupConfig()
+    v_b, b_ok = jpp.extract_boundary(mask, cfg.min_boundary_rows)
+    uv = jnp.stack([jnp.arange(mask.shape[1], dtype=jnp.float32),
+                    v_b - 0.5], -1)
+    K = JK.create(*corridor_K(1))
+    pts3, proj_ok = jcam.backproject_to_world_plane(
+        K, uv, R, t, jnp.array([0.0, 0.0, 1.0, 0.0]))
+    ok = b_ok & proj_ok & (jnp.linalg.norm(pts3 - t, axis=-1)
+                           < cfg.max_range)
+    return pts3[:, :2], ok, jpp.segment_boundary(pts3[:, :2], ok, cfg)
+
+
+def test_segment_boundary_empty_window_branch():
+    """Where a column's +-smooth_radius window holds no valid boundary
+    column, its box-filtered point is an empty sum over the 1e-6 floor:
+    exactly 0 in the port, the residue of the reference's cumsum
+    difference over 1e-6 there.  The tangent at the last valid columns of
+    a run reads that point, so the corner between two walls can move by
+    a few columns and a short wall's column count crosses its threshold:
+    the pop-up branch at frame 134 of the LM and dog-leg corridor runs
+    (PERF.md).  At the reference's own pose both frameworks backproject
+    the same points and split them differently only at that corner."""
+    mask, R, t = _empty_window_case()
+    pts, ok, seg_j = (np.array(x) for x in _jax_boundary_points(
+        jnp.asarray(mask), jnp.asarray(R), jnp.asarray(t)))
+    seg_t = tpp.segment_boundary(torch.as_tensor(pts), torch.as_tensor(ok),
+                                 tpp.PopupConfig()).numpy()
+    diff = np.flatnonzero(seg_j != seg_t)
+    np.testing.assert_array_equal(diff, np.arange(478, 484))
+    assert (np.bincount(seg_j[seg_j >= 0]).tolist()
+            == [12, 322, 7])                       # wall 2: 7 columns
+    assert (np.bincount(seg_t[seg_t >= 0]).tolist()
+            == [12, 316, 13])                      # wall 2: 13 columns
+    # the first column whose window is empty: 7 past the run's end
+    k = tpp.PopupConfig().smooth_radius
+    last = int(np.flatnonzero(ok)[-1])
+    x = np.pad(pts[:, 0] * ok, (k + 1, k)).astype(np.float32)
+    P_j = np.asarray(jax.jit(jnp.cumsum)(jnp.asarray(x)))
+    P_t = torch.cumsum(torch.as_tensor(x), 0).numpy()
+    i = last + k + 1
+    assert P_t[i + 2 * k + 1] - P_t[i] == 0.0
+    assert P_j[i + 2 * k + 1] - P_j[i] != 0.0

@@ -8,6 +8,8 @@ matrices.  Tolerances: 1e-4
 absolute on solver outputs (poses in m, unit planes), relative 1e-4 on
 normal-equation blocks whose entries reach ~1e5."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -68,21 +70,28 @@ def test_small_dense_helpers():
                  rtol=1e-4, what="cho_solve_small")
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_linearize(robust: bool):
+    """The reference's (linearize, total_cost), compiled once per robust
+    configuration (the gauge only changes values)."""
+    rj = ROBUST[0] if robust else None
+    return jax.jit(lambda w, f: (
+        jgraph.linearize(w, f, analytic_planes=True, robust=rj),
+        jgraph.total_cost(w, f, robust=rj)))
+
+
 @pytest.mark.parametrize("robust", [False, True])
 @pytest.mark.parametrize("prior_gauge", [False, True])
 def test_linearize_matches(prior_gauge, robust):
     wj, fj, wt, ft = _problem(prior_gauge)
-    rj, rt = ROBUST if robust else (None, None)
-    lj = jax.jit(lambda w, f: jgraph.linearize(
-        w, f, analytic_planes=True, robust=rj))(wj, fj)
+    rt = ROBUST[1] if robust else None
+    lj, cost_j = _jax_linearize(robust)(wj, fj)
     lt = tgraph.linearize(wt, ft, analytic_planes=True, robust=rt)
     for name in lj._fields:
         b = np.asarray(getattr(lj, name))
         assert_close(getattr(lt, name), b, 1e-4 * max(1.0, np.abs(b).max()),
                      what=name)
-    assert_close(tgraph.total_cost(wt, ft, robust=rt),
-                 jax.jit(lambda w, f: jgraph.total_cost(w, f, robust=rj))(
-                     wj, fj),
+    assert_close(tgraph.total_cost(wt, ft, robust=rt), cost_j,
                  1e-4 * float(lj.cost), what="total_cost")
 
 
@@ -135,13 +144,16 @@ def test_failed_factorization_keeps_the_state(no_debug_nans):
 
 
 def test_unported_paths_raise():
+    """The per-factor jacfwd linearization is still unported and raises;
+    the reduced-solve dispatch and LM no longer do (their parity tests
+    are in test_torch_solvers.py)."""
     _, _, wt, ft = _problem(prior_gauge=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgraph.linearize(wt, ft, analytic_planes=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgraph._plane_terms(wt, ft.planes)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tschur.make_solve_fn("on")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgn.lm_solve(wt, ft)
-    assert tschur.make_solve_fn("auto") is tschur.solve_schur
+    solve_on = tschur.make_solve_fn("on")
+    w_t, stats = tgn.lm_solve(wt, ft, iters=1, solve_fn=solve_on,
+                              analytic_planes=True)
+    assert torch.isfinite(w_t.t).all() and stats.accepted.shape == (1,)
+    assert tschur.make_solve_fn("off") is tschur.solve_schur
