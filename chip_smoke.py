@@ -8,16 +8,20 @@
    csrc`` (nvcc, sm_90a, one process per source), printing the build time
    and ptxas resource usage.
 2. Holds every kernel against its plain PyTorch version on the card, on
-   the same inputs, at the paths' shapes: K4 (Cholesky solve) at n=48
-   and n=96 plus an indefinite system; K2 (depth render) on real 480x640
-   pop-ups of corridor frames; K1 (fused GN) at W=8, L=64, F=72, O=7, P=1,
-   2 iterations, with the marginal block, on a state captured mid-sequence
-   with the window full; K5 (plane Jacobians) on that state's 72 factors
-   and a random F=37 set with invalid factors; K3a (Schur reduction +
-   solve) on that state's linearization and on a system with a
-   gauge-fixed pose, invalid landmarks and an indefinite direction; K3b
-   (tiled Schur GEMM, then K4) at W=23, L=9 and W=24, L=64.  One JSON line
-   per case.
+   the same inputs, at the paths' shapes: K4 (Cholesky solve) at
+   n = 1, 7, 48, 144, 224 (one-block route) and 225, 240, 384 (device-
+   memory route), two launches bit-identical, plus indefinite systems at
+   n=48 and n=240, timed at n=48, 144 and 384 beside
+   ``torch.linalg.cholesky`` / ``cholesky_ex`` + ``cholesky_solve``; K2
+   (depth render) on real 480x640 pop-ups of corridor frames; K1 (fused
+   GN) at W=8, L=64, F=72, O=7, P=1, 2 iterations, with the marginal
+   block, on a state captured mid-sequence with the window full, two
+   launches bit-identical, its in-kernel time from its ``%globaltimer``
+   stamps; K5 (plane Jacobians) on that state's 72 factors and a random
+   F=37 set with invalid factors; K3a (Schur reduction + solve) on that
+   state's linearization and on a system with a gauge-fixed pose, invalid
+   landmarks and an indefinite direction; K3b (tiled Schur GEMM, then K4)
+   at W=23, L=9, W=24, L=64 and W=40, L=64.  One JSON line per case.
 3. Drives the main path: ``run_sequence_chunked`` over all 144 frames of
    ``bench_data/corridor_inputs.npz`` at 480x640 with the production
    ``SlamConfig`` (every frame a keyframe, chunks of 16), rendering each
@@ -62,7 +66,7 @@ K1_TOL = 5e-3             # fused vs per-op GN (tests/test_fused_gn.py)
 K5_TOL = 1e-5             # rtol = atol, as tests/test_ops.py plane terms
 K3A_TOL = (1e-4, 1e-4)    # (rtol, atol) on the steps, tests/test_ops.py
 K3A_S_TOL = (1e-5, 1e-4)  # (rtol, atol) on S
-K3B_TOL = (1e-3, 5e-3)    # tiled route: a 138-144-dim f32 factorization
+K3B_TOL = (1e-3, 5e-3)    # tiled route: a 138-240-dim f32 factorization
 
 
 def _gpu_line() -> str:
@@ -407,10 +411,11 @@ def check_k3a(torch, ks, graph, solver_schur, window, factors, robust):
 
 
 def check_k3b(torch, ks, cholesky, graph, dev):
-    """K3b (+ damping, mask and K4) vs the plain tiled route at W=23, L=9
-    and W=24, L=64; the GEMM alone against its plain version."""
+    """K3b (+ damping, mask and K4) vs the plain tiled route at W=23, L=9,
+    W=24, L=64 and W=40, L=64 (n = 240: K4's device-memory route); the
+    GEMM alone against its plain version."""
     worst, timing = 0.0, None
-    for W, L, F in ((23, 9, 40), (24, 64, 216)):
+    for W, L, F in ((23, 9, 40), (24, 64, 216), (40, 64, 240)):
         window, factors = random_system(torch, W, L, F, 11, dev)
         lin = graph.linearize(window, factors, analytic_planes=True)
         name = f"W{W}_L{L}"
@@ -437,7 +442,6 @@ def check_k3b(torch, ks, cholesky, graph, dev):
                 plain_ms=_time_ms(lambda: ks.schur_gemm_plain(Hpp, B, G)),
                 library_ms=_time_ms(lambda: torch.addmm(Hpp, B, G.T,
                                                         alpha=-1)),
-                k4_n144_ms=_time_ms(lambda: cholesky.chol_solve(S, rhs)),
                 work=(4 * (n * n + 2 * n * C) + 4 * n * n,
                       schur_product_ops(lin, window)[0]),
             )
@@ -451,46 +455,77 @@ def _load_inputs():
     return masks, z["odom_R"], z["odom_t"], z["R0"], z["t0"]
 
 
-def check_k4(torch, cholesky):
-    """K4 vs its plain version at n=48, 96 and an indefinite system."""
-    rng = np.random.default_rng(0)
-    cases = []
-    for n in (48, 96):
-        A = rng.normal(size=(n, n)).astype(np.float32)
-        S = A @ A.T + n * np.eye(n, dtype=np.float32)
-        b = rng.normal(size=(n,)).astype(np.float32)
-        cases.append((f"spd_n{n}", S, b))
-    S = np.diag(np.array([4.0, -1.0, 9.0] + [2.0] * 45, np.float32))
-    b = np.array([8.0, 5.0, 27.0] + [1.0] * 45, np.float32)
-    cases.append(("indefinite_n48", S, b))
+K4_SWEEP = (1, 7, 48, 144, 224, 225, 240, 384)   # both routes, partial panels
+K4_TIMED = (48, 144, 384)    # K1/K3a's size, lm24's, the device-memory route
 
-    worst, timing = 0.0, None
-    for name, S_np, b_np in cases:
+
+def _indefinite_system(n):
+    """diag(4, -1, 9, 2, ...), b = (8, 5, 27, 1, ...): the negative pivot's
+    entry must come out exactly 0, the others b / d."""
+    d = np.full(n, 2.0, np.float32)
+    d[:3] = [4.0, -1.0, 9.0]
+    b = np.ones(n, np.float32)
+    b[:3] = [8.0, 5.0, 27.0]
+    return np.diag(d), b, np.where(d > 0, b / d, 0.0).astype(np.float32)
+
+
+def check_k4(torch, cholesky):
+    """K4 vs its plain version over K4_SWEEP (one-block route up to
+    cholesky.SHARED_MAX_N, the device-memory route above) and on
+    indefinite systems at n=48 and n=240; two launches bit-identical on
+    both routes; times at K4_TIMED beside both library calls."""
+    rng = np.random.default_rng(0)
+    worst, timing = 0.0, {}
+    for n in K4_SWEEP:
+        A = rng.normal(size=(n, n)).astype(np.float32)
+        S_np = A @ A.T + n * np.eye(n, dtype=np.float32)
+        b_np = rng.normal(size=(n,)).astype(np.float32)
+        S = torch.as_tensor(S_np, device="cuda")
+        b = torch.as_tensor(b_np, device="cuda")
+        x = cholesky.chol_solve(S, b)
+        x2 = cholesky.chol_solve(S, b)
+        x_plain = cholesky.chol_solve_plain(S, b)
+        torch.cuda.synchronize()
+        assert torch.isfinite(x).all(), n
+        err = float((x - x_plain).abs().max())
+        scale = float(x_plain.abs().max())
+        same = torch.equal(x, x2)
+        ok = err <= K4_TOL * max(1.0, scale) and same
+        route = "shared" if n <= cholesky.SHARED_MAX_N else "device_memory"
+        print(json.dumps({"check": "K4", "case": f"spd_n{n}", "route": route,
+                          "max_abs_err": err,
+                          "tol": K4_TOL * max(1.0, scale),
+                          "two_launches_bit_identical": same, "pass": ok}))
+        assert ok, f"K4 n={n}: err {err}, bit-identical {same}"
+        worst = max(worst, err)
+        if n in K4_TIMED:
+            timing[n] = dict(
+                ms=_time_ms(lambda: cholesky.chol_solve(S, b)),
+                plain_ms=_time_ms(lambda: cholesky.chol_solve_plain(S, b),
+                                  n=3 if n > 200 else 10, warm=1),
+                library_ms=_time_ms(lambda: torch.cholesky_solve(
+                    b[:, None], torch.linalg.cholesky(S))),
+                library_ex_ms=_time_ms(lambda: torch.cholesky_solve(
+                    b[:, None], torch.linalg.cholesky_ex(S)[0])),
+                work=(4 * (n * n + 2 * n), _chol_ops(n)),
+                n=n, route=route,
+            )
+    for n in (48, 240):
+        S_np, b_np, want = _indefinite_system(n)
         S = torch.as_tensor(S_np, device="cuda")
         b = torch.as_tensor(b_np, device="cuda")
         x = cholesky.chol_solve(S, b)
         x_plain = cholesky.chol_solve_plain(S, b)
         torch.cuda.synchronize()
-        assert torch.isfinite(x).all(), name
         err = float((x - x_plain).abs().max())
-        scale = float(x_plain.abs().max())
-        ok = err <= K4_TOL * max(1.0, scale)
-        if name.startswith("indefinite"):
-            ok = ok and float(x[1]) == 0.0 and abs(float(x[0]) - 2.0) < 1e-5
-        print(json.dumps({"check": "K4", "case": name, "max_abs_err": err,
-                          "tol": K4_TOL * max(1.0, scale), "pass": ok}))
-        assert ok, f"K4 {name}: err {err}"
+        ok = (float(x[1]) == 0.0 and float(x_plain[1]) == 0.0
+              and float((x.cpu() - torch.as_tensor(want)).abs().max()) < 1e-5
+              and err <= K4_TOL)
+        print(json.dumps({"check": "K4", "case": f"indefinite_n{n}",
+                          "max_abs_err": err, "skipped_entry": float(x[1]),
+                          "pass": ok}))
+        assert ok, f"K4 indefinite n={n}"
         worst = max(worst, err)
-        if name == "spd_n48":
-            n = S.shape[0]
-            timing = dict(
-                ms=_time_ms(lambda: cholesky.chol_solve(S, b)),
-                plain_ms=_time_ms(lambda: cholesky.chol_solve_plain(S, b),
-                                  n=10, warm=2),
-                library_ms=_time_ms(lambda: torch.cholesky_solve(
-                    b[:, None], torch.linalg.cholesky(S))),
-                work=(4 * (n * n + 2 * n), _chol_ops(n)),
-            )
     return worst, timing
 
 
@@ -559,11 +594,23 @@ def check_k1(torch, _build, fused_gn, slam_mod, state, scfg):
                            (wk.planes, wp.planes)))
     cost_err = float(((ck - cp).abs() / cp.abs().clamp(min=1.0)).max())
     m_err = float(((mk - mp).abs() / mp.abs().clamp(min=1.0)).max())
-    ok = err <= K1_TOL and cost_err <= K1_TOL and m_err <= 1e-3
+    wk2, ck2, mk2 = fused_gn.fused_gn_solve(w0, factors, **kw)
+    same = all(torch.equal(a, b) for a, b in
+               ((wk.R, wk2.R), (wk.t, wk2.t), (wk.planes, wk2.planes),
+                (ck, ck2), (mk, mk2)))
+    ok = err <= K1_TOL and cost_err <= K1_TOL and m_err <= 1e-3 and same
     print(json.dumps({"check": "K1", "max_abs_err": err, "tol": K1_TOL,
                       "cost_rel_err": cost_err, "marg_rel_err": m_err,
-                      "pass": ok}))
-    assert ok, "K1 disagrees with its plain version"
+                      "two_launches_bit_identical": same, "pass": ok}))
+    assert ok, "K1 disagrees with its plain version or is not deterministic"
+    # the kernel's own time: its first and last %globaltimer stamps
+    n_st = 50
+    stamps = torch.zeros((n_st, fused_gn.n_stamps(scfg.gn_iters)),
+                         dtype=torch.int64, device="cuda")
+    for r in range(n_st):
+        fused_gn.fused_gn_solve(w0, factors, **kw, stamps=stamps[r])
+    torch.cuda.synchronize()
+    kernel_ms = float((stamps[:, -1] - stamps[:, 0]).double().mean()) / 1e6
 
     Wn, L = w0.window_size, w0.max_landmarks
     F = factors.planes.valid.shape[0]
@@ -583,6 +630,7 @@ def check_k1(torch, _build, fused_gn, slam_mod, state, scfg):
             w0, factors, scfg.gn_iters, scfg.damping, scfg.robust, marg, ms),
             n=10, warm=2),
         library_ms=None,
+        kernel_ms_stamped=kernel_ms,
         work=(nbytes, ops),
     )
     return err, timing
@@ -601,7 +649,7 @@ def accept_diffs(acc, cost, ref_acc, ref_cost):
                    ref_cost[:, :-1] - ref_cost[:, 1:])
     base = np.where(acc, cost[:, :-1], ref_cost[:, :-1])
     tie = dec <= ACCEPT_TIE * np.abs(base) + 1e-9
-    return int(diff.sum()), int((diff & ~tie).sum())
+    return int(diff.sum()), int((diff & ~tie).sum()), np.argwhere(diff & ~tie)
 
 
 def run_path(torch, name, slam_mod, pp, run, counters, ref, gpu, scfg, n,
@@ -703,12 +751,19 @@ def run_path(torch, name, slam_mod, pp, run, counters, ref, gpu, scfg, n,
     if rec:
         acc = torch.stack([a for a, _ in rec]).cpu().numpy()[:held]
         cost = torch.stack([c for _, c in rec]).cpu().numpy()[:held]
-        n_diff, n_clear = accept_diffs(acc, cost,
-                                       ref[key + "accepted"][:held],
-                                       ref[key + "cost"][:held])
+        n_diff, n_clear, where = accept_diffs(
+            acc, cost, ref[key + "accepted"][:held], ref[key + "cost"][:held])
         out.update(accept_decisions_held=int(acc.size),
                    accept_diff_from_reference=n_diff,
                    accept_diff_not_ties=n_clear)
+        if n_clear:   # each differing decision that is not a tie
+            out["accept_diff_not_ties_at"] = [
+                {"frame": int(f), "iteration": int(k),
+                 "accepted": bool(acc[f, k]),
+                 "cost": cost[f].tolist(),
+                 "ref_accepted": bool(ref[key + "accepted"][f, k]),
+                 "ref_cost": ref[key + "cost"][f].tolist()}
+                for f, k in where]
     print(json.dumps(out))
     assert held >= MIN_HELD * n, f"{name}: pop-up branch at frame {held}"
     assert n_clear == 0, f"{name}: {n_clear} accept decisions differ"
@@ -850,8 +905,10 @@ def main() -> int:
             "pop_up_slam_tpu/ops/fused_gn.py:795", k1_err, k1_t),
         row("K2 depth_render", "depth_render", "gn", src + "depth_render.cu",
             "pop_up_slam_tpu/ops/depth_render.py:117", k2_err, k2_t),
-        row("K4 chol_solve", "chol_solve", "lm24", src + "chol_solve.cu",
-            "pop_up_slam_tpu/ops/cholesky_pallas.py:134", k4_err, k4_t),
+        *(row(f"K4 chol_solve n={n}", "chol_solve", "lm24",
+              src + "chol_solve.cu",
+              "pop_up_slam_tpu/ops/cholesky_pallas.py:134", k4_err, tm)
+          for n, tm in sorted(k4_t.items())),
         row("K3a schur_reduce_small", "schur_reduce_small", "lm",
             src + "schur_reduce.cu",
             "pop_up_slam_tpu/ops/schur_pallas.py:117", k3a_err, k3a_t),
@@ -862,7 +919,9 @@ def main() -> int:
     ]
     print(json.dumps({"kernels": kernels,
                       "note": "K4's routine also runs inside K1 and K3a; "
-                              "its standalone kernel follows K3b",
+                              "its standalone kernel follows K3b (lm24 "
+                              "launches it at n=144); each K4 row is one "
+                              "timed n, launches are the wrapper's count",
                       "phase_s": phase_s,
                       "total_s": time.perf_counter() - t_start}))
     print(gpu)

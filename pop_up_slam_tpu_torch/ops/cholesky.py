@@ -3,12 +3,14 @@ PyTorch version.
 
 Replaces ``pop_up_slam_tpu/ops/cholesky_pallas.py::chol_solve_pallas``
 (kernel body ``chol_solve_body``).  The CUDA kernel (``csrc/chol_solve.cu``
-over the device routine in ``csrc/chol.cuh``, which the fused GN kernel
-shares) runs the whole n x n system in one block's shared memory.  It is
-bound by its n sequential pivot steps (latency), not by bytes or flops;
-keeping every step in shared memory and spreading each trailing update
-over the block is what the design does about it.  n is limited by the
-227 KB of shared memory a block may use: n <= 224.
+over the panel-blocked device routine in ``csrc/chol.cuh``, which K1 and
+K3a share) is bound by its chain of dependent stages (latency), not by
+bytes or flops; the design runs each panel's pivots (16 rows; 32 on the
+device-memory route) in one warp and updates the trailing matrix with
+register tiles, three block barriers per panel.  Up to ``SHARED_MAX_N`` the system lives in one
+block's shared memory (one launch); above it in a device-memory
+workspace that the wrapper allocates (two launches per panel on the
+caller's stream).  Any n >= 1 is taken.
 
 Semantics (both versions): upper factor U with the modified pivot rule of
 the reference — a pivot at or below 1e-7 * max(max diag, 1) skips its
@@ -21,7 +23,8 @@ import torch
 
 from ._build import check, library
 
-MAX_N = 224
+SHARED_MAX_N = 224   # csrc/chol_solve.cu kSharedMaxN: the one-block route
+PANEL = 16           # csrc/chol.cuh kPanel: rows per panel, one-block route
 
 
 def chol_solve_plain(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -53,9 +56,18 @@ def chol_solve_plain(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def chol_solve(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def n_stamps(n: int) -> int:
+    """Slots of the one-block route's stage stamps (``chol_solve_shared``
+    in csrc/chol.cuh): start, three per panel of ``PANEL`` rows, end."""
+    return 2 + 3 * ((n + PANEL - 1) // PANEL)
+
+
+def chol_solve(S: torch.Tensor, b: torch.Tensor,
+               stamps: torch.Tensor | None = None) -> torch.Tensor:
     """Solve S x = b for SPD S (n, n), b (n,) f32.  CUDA tensors launch
-    the kernel; CPU tensors run :func:`chol_solve_plain`."""
+    the kernel; CPU tensors run :func:`chol_solve_plain`.  ``stamps``, an
+    int64 CUDA tensor of :func:`n_stamps` slots (n <= ``SHARED_MAX_N``
+    only), receives the routine's stage timestamps (ns) for profiling."""
     if S.device.type == "cpu" and b.device.type == "cpu":
         return chol_solve_plain(S, b)
     n = S.shape[0]
@@ -68,14 +80,24 @@ def chol_solve(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError("chol_solve: float32 only")
     if not (S.is_contiguous() and b.is_contiguous()):
         raise ValueError("chol_solve: inputs must be contiguous")
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"chol_solve: n={n} outside 1..{MAX_N}")
+    if n < 1:
+        raise ValueError("chol_solve: empty system")
+    if stamps is not None and (n > SHARED_MAX_N or stamps.device != S.device
+                               or stamps.dtype != torch.int64
+                               or stamps.shape != (n_stamps(n),)):
+        raise ValueError("chol_solve: stamps must be int64 "
+                         f"({n_stamps(n)},) on {S.device}, n <= "
+                         f"{SHARED_MAX_N}")
     x = torch.empty_like(b)
+    work = (torch.empty((n * n + 1,), dtype=torch.float32, device=S.device)
+            if n > SHARED_MAX_N else None)
     lib = library()
     stream = torch.cuda.current_stream(S.device).cuda_stream
     chol_solve.launches += 1
-    check(lib.popup_chol_solve(S.data_ptr(), b.data_ptr(), x.data_ptr(), n,
-                               stream), "chol_solve")
+    check(lib.popup_chol_solve(S.data_ptr(), b.data_ptr(), x.data_ptr(),
+                               work.data_ptr() if work is not None else None,
+                               n, stamps.data_ptr() if stamps is not None
+                               else None, stream), "chol_solve")
     return x
 
 

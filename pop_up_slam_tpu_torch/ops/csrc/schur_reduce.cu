@@ -48,7 +48,7 @@ __global__ void schur_small_kernel(const float* __restrict__ Hpp,
   float* Bc = S + n * n;          // n x ld
   float* Gc = Bc + n * ld;        // n x ld
   float* y = Gc + n * ld;         // n
-  float* red = y + n;             // 1
+  float* scratch = y + n;         // kPanel: the Cholesky's pivot inverses
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
 
@@ -88,7 +88,7 @@ __global__ void schur_small_kernel(const float* __restrict__ Hpp,
   }
   for (int i = tid; i < n; i += nt) y[i] = rhs[i] * pm[i];
   __syncthreads();
-  popup::chol_solve_shared(S, n, y, n, red);
+  popup::chol_solve_shared(S, n, y, n, scratch);
   for (int i = tid; i < n; i += nt) x_out[i] = y[i];
 }
 
@@ -117,7 +117,8 @@ __global__ void schur_gemm_kernel(const float* __restrict__ Hpp,
 }  // namespace
 
 extern "C" int popup_schur_small_smem_bytes(int n) {
-  return (int)sizeof(float) * (n * n + 2 * n * (kChunk + 1) + n + 1);
+  return (int)sizeof(float) *
+         (n * n + 2 * n * (kChunk + 1) + n + popup::kPanel);
 }
 
 extern "C" int popup_schur_reduce_small(const float* Hpp, const float* B,

@@ -40,14 +40,18 @@ def smem_bytes(W: int, L: int, F: int, O: int, P: int) -> int:
     ``make_layout`` in csrc/fused_gn.cu, kept here so the gate works
     without the built library (tests/test_torch_cuda.py and chip_smoke.py
     hold the two equal)."""
-    words = (36 * W * W + 36 * W * L + 31 * W + 20 * L + 33 * F
-             + 81 * (O + P) + 48 * P + 8)
+    ldh = 3 * L | 1          # padded row stride of Hpl and B
+    words = (36 * W * W + 12 * W * ldh + 31 * W + 22 * L + 33 * F
+             + 81 * (O + P) + 48 * P + W * (W + 1) // 2
+             + (L + 1) + (W + 1) + 2 * F + 14 * 36 + 16 + 8)
     return 4 * words
 
 
 def fused_gn_supported(W: int, L: int, F: int, O: int, P: int) -> bool:
-    """Shape gate: the whole problem must fit one block's shared memory."""
-    return W >= 1 and L >= 1 and smem_bytes(W, L, F, O, P) <= MAX_SMEM
+    """Shape gate: the whole problem must fit one block's shared memory
+    (and the per-landmark observer masks are 64 bits wide)."""
+    return (1 <= W <= 64 and L >= 1
+            and smem_bytes(W, L, F, O, P) <= MAX_SMEM)
 
 
 def pack_marg(R0, t0, R1, t1, odom_R0, odom_t0, odom_valid0, mprior_R,
@@ -140,14 +144,23 @@ def _f32(x: torch.Tensor, *shape) -> torch.Tensor:
     return x.reshape(*shape).to(torch.float32).contiguous()
 
 
+def n_stamps(iters: int) -> int:
+    """Slots of the kernel's phase-stamp buffer: start, load, marginal,
+    then 8 phases per iteration (``stamp`` in csrc/fused_gn.cu)."""
+    return 3 + 8 * iters
+
+
 def fused_gn_solve(window: Window, factors: Factors, iters: int = 2,
                    damping: float = 1e-5, robust: RobustConfig | None = None,
-                   marg: torch.Tensor | None = None, marg_static=None):
+                   marg: torch.Tensor | None = None, marg_static=None,
+                   stamps: torch.Tensor | None = None):
     """Fused windowed GN: returns (window_opt, costs (iters,)), plus the
     marginal sqrt-info m_sqrt (6, 6) when ``marg`` (a :func:`pack_marg`
     block) and ``marg_static`` ((adiag 6-tuple, eps, floor)) are given.
     CUDA tensors launch the kernel (one launch); CPU tensors run
-    :func:`fused_gn_plain`."""
+    :func:`fused_gn_plain`.  ``stamps``, an int64 CUDA tensor of
+    :func:`n_stamps` slots, receives the kernel's phase timestamps (ns,
+    ``%globaltimer``); the profile script passes it, the main path not."""
     if robust is None:
         robust = RobustConfig()
     if marg is not None:
@@ -193,6 +206,11 @@ def fused_gn_solve(window: Window, factors: Factors, iters: int = 2,
     else:
         static_ptr = None
 
+    if stamps is not None and (stamps.device != dev
+                               or stamps.dtype != torch.int64
+                               or stamps.shape != (n_stamps(iters),)):
+        raise ValueError("fused_gn_solve: stamps must be int64 "
+                         f"({n_stamps(iters)},) on {dev}")
     f32 = torch.float32
     R_out = torch.empty((W, 3, 3), dtype=f32, device=dev)
     t_out = torch.empty((W, 3), dtype=f32, device=dev)
@@ -210,7 +228,8 @@ def fused_gn_solve(window: Window, factors: Factors, iters: int = 2,
         _KINDS[robust.plane.kind], float(robust.plane.scale),
         _KINDS[robust.prior.kind], float(robust.prior.scale),
         static_ptr, R_out.data_ptr(), t_out.data_ptr(), planes_out.data_ptr(),
-        costs.data_ptr(), m_sqrt.data_ptr(), stream,
+        costs.data_ptr(), m_sqrt.data_ptr(),
+        stamps.data_ptr() if stamps is not None else None, stream,
     ), "fused_gn_solve")
     w_opt = window._replace(R=R_out, t=t_out, planes=planes_out)
     if marg is not None:

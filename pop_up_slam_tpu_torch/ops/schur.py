@@ -19,8 +19,8 @@ The route keeps the reference's split (``schur_pallas.py:154``):
   host.
 - 6W > 128: **K3b** :func:`schur_gemm`, a tiled f32 GEMM on the CUDA
   cores, then damping and mask as PyTorch ops and **K4**
-  :func:`..cholesky.chol_solve` (one block: n <= 224, so W <= 37;
-  beyond it ``chol_solve`` raises).
+  :func:`..cholesky.chol_solve` (one block's shared memory up to
+  n = 224, a device-memory workspace above).
 
 The plain version, :func:`schur_reduce_plain`, is the same reduction with
 the kernels' plain versions; it solves with the pivot-skip rule (an

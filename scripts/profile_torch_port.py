@@ -18,7 +18,16 @@ or ``dogleg`` it is not, as in ``chip_smoke.py``:
    per launch of the port's own kernels;
 3. where the host syncs come from: the source line of every
    synchronizing call over 4 frames (``torch.cuda.set_sync_debug_mode``);
-4. the standalone Cholesky kernel's device time at n=48.
+4. the kernel section (``--kernels-only`` runs it alone): K1's phase
+   split on the chip-smoke state (24 frames in, window full, marginal
+   on), from the kernel's ``%globaltimer`` stamps averaged over
+   ``--launches`` launches; K1's and K4's CUDA-event time per launch;
+   and K4 (``--chol-n``, default 48,144,384) beside the library calls
+   ``torch.linalg.cholesky`` + ``cholesky_solve`` and
+   ``cholesky_ex`` + ``cholesky_solve``, each time the mean of 200
+   calls, with K4's stage split (per 16-row panel: warp factor, row
+   block, trailing update; then the back substitution) on its one-block
+   route.  ``--chol-panel 32`` builds the routine with 32-row panels.
 
 Prints one JSON object per line; the card's ``nvidia-smi`` name and
 power limit come first.
@@ -61,12 +70,155 @@ def _busy_us(intervals):
     return total
 
 
+K1_PHASES = ("linearize", "gather", "B", "S", "cholesky",
+             "back_substitution", "sanitize", "retract")
+
+
+def _event_ms(torch, fn, n: int) -> float:
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def kernel_section(args, torch, z, masks) -> None:
+    """K1's phase split and K4 against the library calls (see above)."""
+    from pop_up_slam_tpu_torch.geometry.camera import Intrinsics
+    from pop_up_slam_tpu_torch.ops import cholesky, fused_gn
+    from pop_up_slam_tpu_torch.pipeline import (
+        SlamConfig, run_sequence_chunked, slam_init,
+    )
+    from pop_up_slam_tpu_torch.pipeline import slam as slam_mod
+    from pop_up_slam_tpu_torch.popup import popup as pp
+
+    def to(x, dev):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
+        if isinstance(x, tuple):
+            return type(x)(*(to(v, dev) for v in x))
+        return x
+
+    pcfg = pp.PopupConfig()
+    scfg = SlamConfig(max_det=pcfg.max_segments + 1, kf_trans=0.0,
+                      kf_rot=0.0)
+    st = slam_init(scfg, z["R0"], z["t0"], device="cpu")
+    st, _ = run_sequence_chunked(
+        st, masks[:24], z["odom_R"][:24], z["odom_t"][:24],
+        Intrinsics.create(320.0, 320.0, 320.0, 240.0, device="cpu"), pcfg,
+        scfg)
+    st = to(st, "cuda")
+    factors = slam_mod._build_factors(st, scfg)
+    w0 = st.window
+    marg = fused_gn.pack_marg(
+        w0.R[0], w0.t[0], w0.R[1], w0.t[1], st.odom_R[0], st.odom_t[0],
+        st.odom_valid[0], st.mprior_R, st.mprior_t, st.mprior_sqrt,
+        st.n_kf >= scfg.window_size)
+    kw = dict(iters=scfg.gn_iters, damping=scfg.damping, robust=scfg.robust,
+              marg=marg, marg_static=slam_mod._marg_static(scfg))
+    n_l = args.launches
+    k1_split(torch, fused_gn, w0, factors, kw, n_l, scfg)
+
+    rng = np.random.default_rng(0)
+    for n in (int(v) for v in args.chol_n.split(",") if v):
+        A = rng.normal(size=(n, n)).astype(np.float32)
+        S = torch.as_tensor(A @ A.T + n * np.eye(n, dtype=np.float32),
+                            device="cuda")
+        b = torch.as_tensor(rng.normal(size=n).astype(np.float32),
+                            device="cuda")
+        row = {"n": n}
+        try:
+            row["chol_solve_ms"] = _event_ms(
+                torch, lambda: cholesky.chol_solve(S, b), 200)
+        except (ValueError, RuntimeError) as exc:
+            row["chol_solve_error"] = str(exc)[:120]
+        if n <= getattr(cholesky, "SHARED_MAX_N", 0):
+            row["stage_us"] = chol_stages(torch, cholesky, S, b, n)
+        row["cholesky_cholesky_solve_ms"] = _event_ms(
+            torch, lambda: torch.cholesky_solve(
+                b[:, None], torch.linalg.cholesky(S)), 200)
+        row["cholesky_ex_cholesky_solve_ms"] = _event_ms(
+            torch, lambda: torch.cholesky_solve(
+                b[:, None], torch.linalg.cholesky_ex(S)[0]), 200)
+        from torch.profiler import ProfilerActivity, profile
+        if "chol_solve_ms" in row:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    cholesky.chol_solve(S, b)
+                torch.cuda.synchronize()
+            ks = {}
+            for e in _device_events(prof):
+                if "chol" in e.name:
+                    ks.setdefault(e.name[:40], []).append(
+                        e.time_range.end - e.time_range.start)
+            row["device_us_per_call_by_kernel"] = {
+                k: float(np.sum(v)) / 20 for k, v in ks.items()}
+        print(json.dumps(row))
+
+
+def chol_stages(torch, cholesky, S, b, n: int) -> dict:
+    """K4's one-block route: the mean time of each stage of each panel
+    (warp factor, row block, trailing update) and of the back
+    substitution, from the routine's stamps over 100 launches."""
+    k = cholesky.n_stamps(n)
+    st = torch.zeros((100, k), dtype=torch.int64, device="cuda")
+    for r in range(100):
+        cholesky.chol_solve(S, b, stamps=st[r])
+    torch.cuda.synchronize()
+    d = st.diff(dim=1).double().mean(0).cpu().numpy() / 1e3
+    out = {}
+    for p in range((k - 2) // 3):
+        for j, name in enumerate(("warp", "rows", "trailing")):
+            out[f"panel{p}_{name}"] = float(d[3 * p + j])
+    out["back_substitution"] = float(d[-1])
+    out["total"] = float(d.sum())
+    return out
+
+
+def k1_split(torch, fused_gn, w0, factors, kw, n_l, scfg) -> None:
+    """K1's phase split and CUDA-event time."""
+    stamps = torch.zeros((n_l, fused_gn.n_stamps(scfg.gn_iters)),
+                         dtype=torch.int64, device="cuda")
+    fused_gn.fused_gn_solve(w0, factors, **kw)
+    for r in range(n_l):
+        fused_gn.fused_gn_solve(w0, factors, **kw, stamps=stamps[r])
+    torch.cuda.synchronize()
+    d = stamps.diff(dim=1).double().mean(0).cpu().numpy() / 1e3   # us
+    phases = {"load": float(d[0]), "marginal": float(d[1])}
+    for it in range(scfg.gn_iters):
+        for k, name in enumerate(K1_PHASES):
+            phases[f"it{it}_{name}"] = float(d[2 + 8 * it + k])
+    per_kind = {name: float(sum(d[2 + 8 * it + k]
+                                for it in range(scfg.gn_iters)))
+                for k, name in enumerate(K1_PHASES)}
+    print(json.dumps({
+        "k1_phase_us": phases, "k1_phase_us_all_iters": per_kind,
+        "k1_stamped_total_us": float(stamps[:, -1].sub(stamps[:, 0])
+                                     .double().mean()) / 1e3,
+        "k1_event_ms": _event_ms(torch, lambda: fused_gn.fused_gn_solve(
+            w0, factors, **kw), n_l),
+        "launches": n_l, "W": scfg.window_size,
+        "L": int(w0.max_landmarks)}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=32)
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--solver", choices=("gn", "lm", "dogleg"), default="gn")
     ap.add_argument("--window", type=int, default=8)
+    ap.add_argument("--kernels-only", action="store_true")
+    ap.add_argument("--launches", type=int, default=200)
+    ap.add_argument("--chol-n", default="48,144,384")
+    ap.add_argument("--chol-panel", type=int, default=0,
+                    help="build the Cholesky routine with this panel "
+                         "width (16 or 32) instead of chol.cuh's default")
     args = ap.parse_args()
 
     import torch
@@ -78,7 +230,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import pop_up_slam_tpu_torch  # noqa: F401
     from pop_up_slam_tpu_torch.geometry.camera import Intrinsics
-    from pop_up_slam_tpu_torch.ops import _build, cholesky
+    from pop_up_slam_tpu_torch.ops import _build
     from pop_up_slam_tpu_torch.pipeline import (
         SlamConfig, offline, run_sequence_chunked, slam_init,
     )
@@ -87,6 +239,12 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
+    if args.chol_panel:
+        from pop_up_slam_tpu_torch.ops import cholesky
+
+        _build.NVCC_FLAGS += (f"-DPOPUP_CHOL_PANEL={args.chol_panel}",)
+        cholesky.PANEL = args.chol_panel
+        print(json.dumps({"chol_panel": args.chol_panel}))
     _build.library()
 
     z = np.load(os.path.join(REPO, "bench_data", "corridor_inputs.npz"))
@@ -100,6 +258,9 @@ def main() -> int:
                       window_size=args.window)
     depth = args.solver == "gn"
     K = Intrinsics.create(320.0, 320.0, 320.0, 240.0, device="cuda")
+    if args.kernels_only:
+        kernel_section(args, torch, z, masks)
+        return 0
     print(json.dumps({"solver": args.solver, "window_size": args.window,
                       "depth": depth}))
 
@@ -202,22 +363,7 @@ def main() -> int:
     print(json.dumps({"sync_sites_per_frame": sorted(
         [[k, c / 4] for k, c in sites.items()], key=lambda x: -x[1])}))
 
-    # the standalone Cholesky kernel at the main path's n = 6W = 48
-    rng = np.random.default_rng(0)
-    A = rng.normal(size=(48, 48)).astype(np.float32)
-    S = torch.as_tensor(A @ A.T + 48 * np.eye(48, dtype=np.float32),
-                        device="cuda")
-    b = torch.as_tensor(rng.normal(size=48).astype(np.float32), device="cuda")
-    cholesky.chol_solve(S, b)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            cholesky.chol_solve(S, b)
-        torch.cuda.synchronize()
-    ch = [e.time_range.end - e.time_range.start for e in _device_events(prof)
-          if "chol_solve_kernel" in e.name]
-    print(json.dumps({"chol_solve_kernel_device_ms_n48":
-                      float(np.mean(ch)) / 1e3 if ch else None}))
+    kernel_section(args, torch, z, masks)
     return 0
 
 

@@ -5,7 +5,7 @@ file imports no JAX, so it runs on a GPU machine without it:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 (``--noconftest``: the suite's conftest configures JAX.)  Tolerances are
-the CPU parity tests' own: K4 2e-4, K2 rtol 1e-4 / atol 1e-3, K1 5e-3 on
+the CPU parity tests' own: K4 2e-4 (absolute and relative), K2 rtol 1e-4 / atol 1e-3, K1 5e-3 on
 the window (1e-3 relative on the marginal), K5 rtol 1e-5 / atol 1e-5,
 K3a rtol 1e-4 / atol 1e-4 on the steps (rtol 1e-5 / atol 1e-4 on S), K3b
 with K4 rtol 1e-3 / atol 5e-3.
@@ -39,7 +39,10 @@ ROBUST = RobustConfig(odom=RobustKernel("huber", 2.0),
 MARG_STATIC = ((1 / 0.03,) * 3 + (1 / 0.01,) * 3, 1e-6, 4.0)
 
 
-@pytest.mark.parametrize("n", [48, 96, 224])
+# n: partial panels (1, 7, 225), the K1/K3a size (48), the lm24 size
+# (144), the largest one-block system (224) and the device-memory route
+# (225, 240, 384)
+@pytest.mark.parametrize("n", [1, 7, 48, 144, 224, 225, 240, 384])
 def test_chol_solve_kernel_matches_plain(cuda_device, n):
     S, b = (torch.as_tensor(x, device=cuda_device) for x in spd_system(n, n))
     before = cholesky.chol_solve.launches
@@ -50,17 +53,36 @@ def test_chol_solve_kernel_matches_plain(cuda_device, n):
     assert_close(x_k, x_p, 2e-4, rtol=2e-4, what="x")
 
 
-def test_chol_solve_kernel_skips_indefinite(cuda_device):
-    S = torch.diag(torch.tensor([4.0, -1.0, 9.0], device=cuda_device))
-    b = torch.tensor([8.0, 5.0, 27.0], device=cuda_device)
+@pytest.mark.parametrize("n", [3, 240])
+def test_chol_solve_kernel_skips_indefinite(cuda_device, n):
+    """A negative pivot (one-block route at n=3, device-memory route at
+    n=240) skips its direction: that entry exactly 0, the rest solved."""
+    d = np.full(n, 2.0, np.float32)
+    d[:3] = [4.0, -1.0, 9.0]
+    rhs = np.ones(n, np.float32)
+    rhs[:3] = [8.0, 5.0, 27.0]
+    S = torch.diag(torch.as_tensor(d, device=cuda_device))
+    b = torch.as_tensor(rhs, device=cuda_device)
     x = cholesky.chol_solve(S, b).cpu().numpy()
-    np.testing.assert_allclose(x, [2.0, 0.0, 3.0], atol=1e-5)
+    assert x[1] == 0.0
+    want = np.where(d > 0, rhs / d, 0.0)
+    np.testing.assert_allclose(x, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [144, 384])
+def test_chol_solve_kernel_is_deterministic(cuda_device, n):
+    """No atomics on either route: two launches agree bit for bit."""
+    S, b = (torch.as_tensor(x, device=cuda_device) for x in spd_system(n, 3))
+    assert torch.equal(cholesky.chol_solve(S, b), cholesky.chol_solve(S, b))
 
 
 def test_kernel_wrappers_reject_bad_inputs(cuda_device):
     S = torch.eye(225, device=cuda_device)
     with pytest.raises(ValueError):
-        cholesky.chol_solve(S, torch.ones(225, device=cuda_device))
+        cholesky.chol_solve(S, torch.ones(224, device=cuda_device))
+    with pytest.raises(ValueError):
+        cholesky.chol_solve(S[:, :224].contiguous(),
+                            torch.ones(225, device=cuda_device))
     with pytest.raises(ValueError):
         cholesky.chol_solve(S[:8, :8].double(),
                             torch.ones(8, device=cuda_device).double())
@@ -138,6 +160,28 @@ def test_fused_gn_kernel_matches_plain(cuda_device, marg, full, robust):
                      what="m_sqrt")
 
 
+def test_fused_gn_kernel_skips_unobserved_landmarks(cuda_device):
+    """Landmark 3 observed by no pose and landmark 4 by pose 2 alone: the
+    S product skips the landmarks a pose pair does not share."""
+    w, f = _problem(5, cuda_device)
+    pf = f.planes
+    valid = pf.valid.clone()
+    valid[pf.lm_idx == 3] = False
+    valid[(pf.lm_idx == 4) & (pf.pose_idx != 2)] = False
+    valid[(pf.lm_idx == 4) & (pf.pose_idx == 2)] = True
+    f = f._replace(planes=pf._replace(valid=valid))
+    kw = dict(iters=2, damping=1e-5, robust=ROBUST,
+              marg=_marg(w, f, True), marg_static=MARG_STATIC)
+    out_k = fused_gn.fused_gn_solve(w, f, **kw)
+    out_p = fused_gn.fused_gn_plain(w, f, 2, 1e-5, ROBUST, kw["marg"],
+                                    MARG_STATIC)
+    torch.cuda.synchronize()
+    assert_close(out_k[0], out_p[0], 5e-3, what="window")
+    assert_close(out_k[1], out_p[1], 1e-2, rtol=5e-3, what="costs")
+    assert_close(out_k[2], out_p[2], 1e-3 * float(out_p[2].abs().max()),
+                 what="m_sqrt")
+
+
 @pytest.mark.parametrize("shape", [(8, 64, 72, 7, 1), (4, 16, 20, 3, 1),
                                    (12, 96, 108, 11, 1)])
 def test_fused_gn_gate_matches_kernel_layout(cuda_device, shape):
@@ -206,10 +250,11 @@ def test_plane_terms_kernel_matches_plain(cuda_device, shape):
 
 
 @pytest.mark.parametrize("case", ["spd_W8", "indefinite_W8", "tiled_W23",
-                                  "tiled_W24"])
+                                  "tiled_W24", "tiled_W40"])
 def test_schur_reduce_kernels_match_plain(cuda_device, case):
     W, L, F = {"spd_W8": (8, 64, 72), "indefinite_W8": (8, 64, 72),
-               "tiled_W23": (23, 9, 40), "tiled_W24": (24, 64, 216)}[case]
+               "tiled_W23": (23, 9, 40), "tiled_W24": (24, 64, 216),
+               "tiled_W40": (40, 64, 240)}[case]
     window, factors = _window_factors(*random_system(11, W, L, F),
                                       cuda_device)
     lin = graph.linearize(window, factors, analytic_planes=True)
@@ -234,6 +279,25 @@ def test_schur_reduce_kernels_match_plain(cuda_device, case):
     assert_close(sol_k.dxl, sol_p.dxl, what="dxl", **tol)
     if case.startswith("indefinite"):
         assert float(sol_k.dxp[2, 0]) == 0.0
+
+
+def test_make_solve_fn_auto_at_w40(cuda_device):
+    """W=40 (n = 240) on the card: "auto" takes K3b + K4 and returns
+    finite steps, with one K4 launch."""
+    from pop_up_slam_tpu_torch.solver import schur as solver_schur
+
+    window, factors = _window_factors(*random_system(13, 40, 64, 240),
+                                      cuda_device)
+    lin = graph.linearize(window, factors, analytic_planes=True)
+    before = (cholesky.chol_solve.launches, schur.schur_gemm.launches)
+    sol = solver_schur.make_solve_fn("auto")(lin, window, 1e-3)
+    torch.cuda.synchronize()
+    assert (cholesky.chol_solve.launches, schur.schur_gemm.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert sol.dxp.shape == (40, 6) and sol.dxl.shape == (64, 3)
+    assert torch.isfinite(sol.dxp).all() and torch.isfinite(sol.dxl).all()
+    assert_close(sol, schur.schur_reduce_plain(lin, window, 1e-3), 5e-3,
+                 rtol=1e-3, what="auto")
 
 
 def test_schur_reduce_small_is_deterministic(cuda_device):

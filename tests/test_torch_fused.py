@@ -116,7 +116,8 @@ def test_fused_gn_plain_matches_fused_body(marg, full):
 
 
 def test_fused_gn_gate():
-    """The kernel's shape gate is its shared-memory budget (227 KB)."""
+    """The kernel's shape gate is its shared-memory budget (227 KB) and
+    the 64-bit observer masks (W <= 64)."""
     assert fused_gn.fused_gn_supported(8, 64, 72, 7, 1)
-    assert fused_gn.smem_bytes(8, 64, 72, 7, 1) == 101376
+    assert fused_gn.smem_bytes(8, 64, 72, 7, 1) == 105368
     assert not fused_gn.fused_gn_supported(16, 128, 144, 15, 1)

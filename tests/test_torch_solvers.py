@@ -17,7 +17,11 @@ test_torch_cuda.py.
   ``schur_reduce_plain``: windows 1e-4, cost histories 1e-4 relative,
   ``accepted`` exact;
 - ``solve_dense`` vs ``solve_schur`` (1e-4) and the ``make_solve_fn``
-  dispatch.
+  dispatch;
+- ``make_solve_fn("on")`` at W=40, L=64 (n = 240: the plain versions of
+  K3b and of K4 past its one-block route) vs the reference's
+  ``make_solve_fn("auto")`` (``solve_schur`` at 6W > 80): rtol 1e-3 /
+  atol 5e-3, the tiled route's tolerance.
 
 Inputs are made from seeds with numpy (``_torch_parity``); every JAX
 function here is compiled once per shape.
@@ -199,3 +203,22 @@ def test_make_solve_fn_dispatch():
         assert torch.equal(a, b)
     with pytest.raises(ValueError):
         tschur.make_solve_fn("sometimes")
+
+
+def test_make_solve_fn_on_matches_reference_at_w40():
+    """n = 6W = 240, where K4 leaves its one-block route: the port's
+    Schur route on CPU tensors against the reference's ``"auto"``."""
+    w, f = random_system(13, W=40, L=64, F=240)
+    wt = convert.window_from_numpy(w, CPU)
+    lin = tgraph.linearize(wt, convert.factors_from_numpy(f, CPU),
+                           analytic_planes=True)
+    out_t = tschur.make_solve_fn("on")(lin, wt, 1e-3)
+    j_solve = jschur.make_solve_fn("auto")
+    assert j_solve is jschur.solve_schur
+    out_j = j_solve(
+        jgraph.Linearization(*(jnp.asarray(x) for x in np_tree(lin))),
+        to_jax(jgraph.Window, w), 1e-3)
+    tol = dict(rtol=1e-3, atol=5e-3)
+    assert_close(out_t.S, out_j.S, what="S", **tol)
+    assert_close(out_t.dxp, out_j.dxp, what="dxp", **tol)
+    assert_close(out_t.dxl, out_j.dxl, what="dxl", **tol)
