@@ -32,7 +32,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "popup_chol_solve": [_P, _P, _P, _P, _I, _P, _P],
+    "popup_chol_solve": [_P, _P, _P, _P, _I, _P],
     "popup_depth_render": [_P] * 11 + [_I, _P, _P, _I, _I, _F, _F, _F, _P],
     "popup_fused_gn_smem_bytes": [_I, _I, _I, _I, _I],
     "popup_fused_gn": [_P] * 14 + [_F] + [_I] * 6

@@ -24,7 +24,6 @@ import torch
 from ._build import check, library
 
 SHARED_MAX_N = 224   # csrc/chol_solve.cu kSharedMaxN: the one-block route
-PANEL = 16           # csrc/chol.cuh kPanel: rows per panel, one-block route
 
 
 def chol_solve_plain(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -56,18 +55,9 @@ def chol_solve_plain(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def n_stamps(n: int) -> int:
-    """Slots of the one-block route's stage stamps (``chol_solve_shared``
-    in csrc/chol.cuh): start, three per panel of ``PANEL`` rows, end."""
-    return 2 + 3 * ((n + PANEL - 1) // PANEL)
-
-
-def chol_solve(S: torch.Tensor, b: torch.Tensor,
-               stamps: torch.Tensor | None = None) -> torch.Tensor:
+def chol_solve(S: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Solve S x = b for SPD S (n, n), b (n,) f32.  CUDA tensors launch
-    the kernel; CPU tensors run :func:`chol_solve_plain`.  ``stamps``, an
-    int64 CUDA tensor of :func:`n_stamps` slots (n <= ``SHARED_MAX_N``
-    only), receives the routine's stage timestamps (ns) for profiling."""
+    the kernel; CPU tensors run :func:`chol_solve_plain`."""
     if S.device.type == "cpu" and b.device.type == "cpu":
         return chol_solve_plain(S, b)
     n = S.shape[0]
@@ -82,12 +72,6 @@ def chol_solve(S: torch.Tensor, b: torch.Tensor,
         raise ValueError("chol_solve: inputs must be contiguous")
     if n < 1:
         raise ValueError("chol_solve: empty system")
-    if stamps is not None and (n > SHARED_MAX_N or stamps.device != S.device
-                               or stamps.dtype != torch.int64
-                               or stamps.shape != (n_stamps(n),)):
-        raise ValueError("chol_solve: stamps must be int64 "
-                         f"({n_stamps(n)},) on {S.device}, n <= "
-                         f"{SHARED_MAX_N}")
     x = torch.empty_like(b)
     work = (torch.empty((n * n + 1,), dtype=torch.float32, device=S.device)
             if n > SHARED_MAX_N else None)
@@ -96,8 +80,7 @@ def chol_solve(S: torch.Tensor, b: torch.Tensor,
     chol_solve.launches += 1
     check(lib.popup_chol_solve(S.data_ptr(), b.data_ptr(), x.data_ptr(),
                                work.data_ptr() if work is not None else None,
-                               n, stamps.data_ptr() if stamps is not None
-                               else None, stream), "chol_solve")
+                               n, stream), "chol_solve")
     return x
 
 

@@ -40,11 +40,8 @@
 
 namespace popup {
 
-#ifndef POPUP_CHOL_PANEL
-#define POPUP_CHOL_PANEL 16
-#endif
-constexpr int kPanel = POPUP_CHOL_PANEL;  // one-block route: 16 or 32
-constexpr int kPanelDevice = 32;          // device-memory route
+constexpr int kPanel = 16;        // one-block route (32 spills: PERF.md)
+constexpr int kPanelDevice = 32;  // device-memory route
 constexpr unsigned kFull = 0xffffffffu;
 
 // 1e-7 * max(max diag(A), 1) over the input diagonal; one warp (every
@@ -266,48 +263,29 @@ __device__ inline void chol_back_warp(const float* A, int lda, float* y,
   }
 }
 
-// Thread 0 writes %globaltimer (ns) into slot i of an optional stamp
-// buffer (profiling; null otherwise).
-__device__ inline void chol_stamp(unsigned long long* stamps, int i) {
-  if (stamps != nullptr && threadIdx.x == 0) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    stamps[i] = t;
-  }
-}
-
 // The whole solve on one block (blockDim.x a multiple of 32).  A: n x n
 // row-major (leading dimension lda), factorized in place (its upper
 // triangle ends up holding U); y: n floats holding b on entry and x on
 // return; scratch: kPanel floats.  Every thread of the block must call this,
-// after a barrier that completes A and y.  stamps (profiling, or null):
-// 2 + 3 ceil(n / kPanel) slots, the start, then per panel the ends of its
-// three stages, then the end of the back substitution.
+// after a barrier that completes A and y.
 __device__ inline void chol_solve_shared(float* A, int lda, float* y, int n,
-                                         float* scratch,
-                                         unsigned long long* stamps = nullptr) {
+                                         float* scratch) {
   const int warp = threadIdx.x >> 5;
-  chol_stamp(stamps, 0);
   const float thresh = warp == 0 ? chol_threshold(A, lda, n) : 0.0f;
-  int slot = 1;
   for (int k0 = 0; k0 < n; k0 += kPanel) {
     const int p = min(kPanel, n - k0);
     if (warp == 0) chol_panel_warp<kPanel>(A, lda, y, k0, p, thresh, scratch);
     __syncthreads();
-    chol_stamp(stamps, slot++);
     chol_panel_rows<kPanel>(A, lda, y, k0, p, n, scratch, threadIdx.x,
                             blockDim.x);
     __syncthreads();
-    chol_stamp(stamps, slot++);
     if (k0 + p < n) {
       chol_trailing_block(A, lda, k0, p, n);
       __syncthreads();
     }
-    chol_stamp(stamps, slot++);
   }
   if (warp == 0) chol_back_warp<kPanel>(A, lda, y, n);
   __syncthreads();
-  chol_stamp(stamps, slot);
 }
 
 }  // namespace popup

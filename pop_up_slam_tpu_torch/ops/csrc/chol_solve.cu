@@ -34,7 +34,7 @@ constexpr int kTrailThreads = 128;  // macro tile 16 rows x 32 columns
 
 __global__ void __launch_bounds__(kSharedThreads) chol_solve_kernel(
     const float* __restrict__ S, const float* __restrict__ b,
-    float* __restrict__ x, int n, unsigned long long* stamps) {
+    float* __restrict__ x, int n) {
   extern __shared__ float sm[];
   float* A = sm;
   float* y = A + n * n;
@@ -42,7 +42,7 @@ __global__ void __launch_bounds__(kSharedThreads) chol_solve_kernel(
   for (int e = threadIdx.x; e < n * n; e += blockDim.x) A[e] = S[e];
   for (int e = threadIdx.x; e < n; e += blockDim.x) y[e] = b[e];
   __syncthreads();
-  popup::chol_solve_shared(A, n, y, n, scratch, stamps);
+  popup::chol_solve_shared(A, n, y, n, scratch);
   for (int e = threadIdx.x; e < n; e += blockDim.x) x[e] = y[e];
 }
 
@@ -104,19 +104,16 @@ __global__ void chol_back_kernel(const float* A, float* y, int n) {
 
 }  // namespace
 
-// work: n*n + 1 floats of device memory for n > kSharedMaxN (else unused);
-// stamps: null, or the routine's stage stamps on the one-block route
-// (chol.cuh).
+// work: n*n + 1 floats of device memory for n > kSharedMaxN (else unused).
 extern "C" int popup_chol_solve(const float* S, const float* b, float* x,
-                                float* work, int n,
-                                unsigned long long* stamps, void* stream) {
+                                float* work, int n, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n <= kSharedMaxN) {
     const int smem = (int)sizeof(float) * (n * n + n + popup::kPanel);
     cudaError_t err = cudaFuncSetAttribute(
         chol_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    chol_solve_kernel<<<1, kSharedThreads, smem, st>>>(S, b, x, n, stamps);
+    chol_solve_kernel<<<1, kSharedThreads, smem, st>>>(S, b, x, n);
     return (int)cudaGetLastError();
   }
   if (work == nullptr) return (int)cudaErrorInvalidValue;

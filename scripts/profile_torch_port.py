@@ -25,9 +25,7 @@ or ``dogleg`` it is not, as in ``chip_smoke.py``:
    and K4 (``--chol-n``, default 48,144,384) beside the library calls
    ``torch.linalg.cholesky`` + ``cholesky_solve`` and
    ``cholesky_ex`` + ``cholesky_solve``, each time the mean of 200
-   calls, with K4's stage split (per 16-row panel: warp factor, row
-   block, trailing update; then the back substitution) on its one-block
-   route.  ``--chol-panel 32`` builds the routine with 32-row panels.
+   calls, and the device time of each of K4's kernels per call.
 
 Prints one JSON object per line; the card's ``nvidia-smi`` name and
 power limit come first.
@@ -133,13 +131,8 @@ def kernel_section(args, torch, z, masks) -> None:
         b = torch.as_tensor(rng.normal(size=n).astype(np.float32),
                             device="cuda")
         row = {"n": n}
-        try:
-            row["chol_solve_ms"] = _event_ms(
-                torch, lambda: cholesky.chol_solve(S, b), 200)
-        except (ValueError, RuntimeError) as exc:
-            row["chol_solve_error"] = str(exc)[:120]
-        if n <= getattr(cholesky, "SHARED_MAX_N", 0):
-            row["stage_us"] = chol_stages(torch, cholesky, S, b, n)
+        row["chol_solve_ms"] = _event_ms(
+            torch, lambda: cholesky.chol_solve(S, b), 200)
         row["cholesky_cholesky_solve_ms"] = _event_ms(
             torch, lambda: torch.cholesky_solve(
                 b[:, None], torch.linalg.cholesky(S)), 200)
@@ -147,38 +140,18 @@ def kernel_section(args, torch, z, masks) -> None:
             torch, lambda: torch.cholesky_solve(
                 b[:, None], torch.linalg.cholesky_ex(S)[0]), 200)
         from torch.profiler import ProfilerActivity, profile
-        if "chol_solve_ms" in row:
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    cholesky.chol_solve(S, b)
-                torch.cuda.synchronize()
-            ks = {}
-            for e in _device_events(prof):
-                if "chol" in e.name:
-                    ks.setdefault(e.name[:40], []).append(
-                        e.time_range.end - e.time_range.start)
-            row["device_us_per_call_by_kernel"] = {
-                k: float(np.sum(v)) / 20 for k, v in ks.items()}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                cholesky.chol_solve(S, b)
+            torch.cuda.synchronize()
+        ks = {}
+        for e in _device_events(prof):
+            if "chol" in e.name:
+                ks.setdefault(e.name[:40], []).append(
+                    e.time_range.end - e.time_range.start)
+        row["device_us_per_call_by_kernel"] = {
+            k: float(np.sum(v)) / 20 for k, v in ks.items()}
         print(json.dumps(row))
-
-
-def chol_stages(torch, cholesky, S, b, n: int) -> dict:
-    """K4's one-block route: the mean time of each stage of each panel
-    (warp factor, row block, trailing update) and of the back
-    substitution, from the routine's stamps over 100 launches."""
-    k = cholesky.n_stamps(n)
-    st = torch.zeros((100, k), dtype=torch.int64, device="cuda")
-    for r in range(100):
-        cholesky.chol_solve(S, b, stamps=st[r])
-    torch.cuda.synchronize()
-    d = st.diff(dim=1).double().mean(0).cpu().numpy() / 1e3
-    out = {}
-    for p in range((k - 2) // 3):
-        for j, name in enumerate(("warp", "rows", "trailing")):
-            out[f"panel{p}_{name}"] = float(d[3 * p + j])
-    out["back_substitution"] = float(d[-1])
-    out["total"] = float(d.sum())
-    return out
 
 
 def k1_split(torch, fused_gn, w0, factors, kw, n_l, scfg) -> None:
@@ -216,9 +189,6 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true")
     ap.add_argument("--launches", type=int, default=200)
     ap.add_argument("--chol-n", default="48,144,384")
-    ap.add_argument("--chol-panel", type=int, default=0,
-                    help="build the Cholesky routine with this panel "
-                         "width (16 or 32) instead of chol.cuh's default")
     args = ap.parse_args()
 
     import torch
@@ -239,12 +209,6 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    if args.chol_panel:
-        from pop_up_slam_tpu_torch.ops import cholesky
-
-        _build.NVCC_FLAGS += (f"-DPOPUP_CHOL_PANEL={args.chol_panel}",)
-        cholesky.PANEL = args.chol_panel
-        print(json.dumps({"chol_panel": args.chol_panel}))
     _build.library()
 
     z = np.load(os.path.join(REPO, "bench_data", "corridor_inputs.npz"))
