@@ -13,28 +13,38 @@
    memory route), two launches bit-identical, plus indefinite systems at
    n=48 and n=240, timed at n=48, 144 and 384 beside
    ``torch.linalg.cholesky`` / ``cholesky_ex`` + ``cholesky_solve``; K2
-   (depth render) on real 480x640 pop-ups of corridor frames; K1 (fused
-   GN) at W=8, L=64, F=72, O=7, P=1, 2 iterations, with the marginal
-   block, on a state captured mid-sequence with the window full, two
-   launches bit-identical, its in-kernel time from its ``%globaltimer``
-   stamps; K5 (plane Jacobians) on that state's 72 factors and a random
-   F=37 set with invalid factors; K3a (Schur reduction + solve) on that
-   state's linearization and on a system with a gauge-fixed pose, invalid
-   landmarks and an indefinite direction; K3b (tiled Schur GEMM, then K4)
-   at W=23, L=9, W=24, L=64 and W=40, L=64.  One JSON line per case.
+   (depth render) on real 480x640 pop-ups of four corridor frames (each
+   output's sha256 printed), the 120x160 test frame and a 479x161 crop;
+   K1 (fused GN) at W=8, L=64, F=72, O=7, P=1, 2 iterations, with the
+   marginal block, on a state captured mid-sequence with the window
+   full, two launches bit-identical, its in-kernel time from its
+   ``%globaltimer`` stamps; K5 (plane Jacobians) on that state's 72
+   factors and a random F=37 set with invalid factors; K3a (Schur
+   reduction + solve) on that state's linearization, on a system with a
+   gauge-fixed pose, invalid landmarks and an indefinite direction, and
+   on random systems at W=21, L=100 (n = 126), W=8, L=80 and W=5, L=9;
+   its S equal bit for bit to K3b's at lambda = 0 with every pose free
+   (a random system and dense B, G); two launches bit-identical; the
+   sha256 of its (S, x) on a seeded random system; its in-kernel time
+   from its stamps; K3b (tiled Schur GEMM, then K4) at W=23, L=9, W=24,
+   L=64 and W=40, L=64.  One JSON line per case.
 3. Drives the main path: ``run_sequence_chunked`` over all 144 frames of
    ``bench_data/corridor_inputs.npz`` at 480x640 with the production
    ``SlamConfig`` (every frame a keyframe, chunks of 16), rendering each
    frame's depth as the reference ``entry()`` does.  Kernel launch counters
    are zeroed just before and read just after; the trajectory is held
    against the committed JAX reference ``pop_up_slam_tpu_torch/data/
-   corridor_ref.npz``.
+   corridor_ref.npz`` (which also records the reference's pop-up walls).
 4. Drives the solver paths the same way, each against its committed JAX
    run in ``corridor_ref_solvers.npz``: ``solver="lm"`` and
    ``solver="dogleg"`` over the 144 frames at the production widths (K3a
    and K5 twice per keyframe), and ``solver="lm"`` with ``window_size=24``
    over the first 48 frames (6W = 144: K3b, K4 and K5 twice per keyframe).
-   Prints how many accept decisions differ from the reference's.
+   Every path is held over ``frames_held`` (the frames before its pop-up
+   first finds another set of valid walls than the reference's), the
+   accept decisions over ``accept_frames_held`` (before its valid walls
+   or their column counts first differ); prints how many decisions
+   differ from the reference's.
 5. Prints the ``{"kernels": [...]}`` line (one row per kernel; K4's row
    is lm24's n=144, its other timed sizes, which no path launches, are
    nested under ``other_n`` with 0 launches), the card line, and last
@@ -46,6 +56,7 @@ line.  Without a CUDA device it exits non-zero at once.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -388,6 +399,21 @@ def check_k3a(torch, ks, graph, solver_schur, window, factors, robust):
         if name.startswith("gauge"):
             assert float(sol_k.dxp[2, 0]) == 0.0 == float(sol_p.dxp[2, 0])
             assert not bool(sol_k.dxp[0].any())
+    # the widest window of the route (n = 126), more landmarks than one
+    # 64-landmark chunk, 3L = 27 columns (no 16-byte staging), and the two
+    # landmarks random_system leaves unobserved; n = 126 is held as the
+    # tiled route's 138-240-dim systems
+    lam3 = torch.full((), 1e-3, device=dev)
+    for W_, L_, F_, tol, s_tol in ((21, 100, 200, K3B_TOL, K3B_TOL),
+                                   (8, 80, 90, K3A_TOL, K3A_S_TOL),
+                                   (5, 9, 40, K3A_TOL, K3A_S_TOL)):
+        w_r, f_r = random_system(torch, W_, L_, F_, 13, dev)
+        lin_r = graph.linearize(w_r, f_r, analytic_planes=True)
+        worst = max(worst, _compare_schur(
+            torch, "K3a", f"random_W{W_}_L{L_}",
+            ks.schur_reduce(lin_r, w_r, lam3),
+            ks.schur_reduce_plain(lin_r, w_r, lam3), tol, s_tol))
+    check_k3a_equals_k3b(torch, ks, graph, dev)
     ops_ = ks.reduce_operands(lin, window, lam)
     _, B, G, Hpp, pm, rp = ops_
     a = ks.schur_reduce_small(Hpp, B, G, -rp, pm, lam)
@@ -396,6 +422,23 @@ def check_k3a(torch, ks, graph, solver_schur, window, factors, robust):
     print(json.dumps({"check": "K3a", "case": "two launches bit-identical",
                       "pass": same}))
     assert same
+    # output hashes on a seeded problem, for a bit-for-bit comparison with
+    # another build of the kernel (-0 taken as +0)
+    w_h, f_h = random_system(torch, 8, 64, 72, 5, dev)
+    lam_h = torch.full((), 1e-5, device=dev)
+    _, B_h, G_h, Hpp_h, pm_h, rp_h = ks.reduce_operands(
+        graph.linearize(w_h, f_h, analytic_planes=True), w_h, lam_h)
+    S_h, x_h = ks.schur_reduce_small(Hpp_h, B_h, G_h, -rp_h, pm_h, lam_h)
+    print(json.dumps({"check": "K3a", "case": "sha256 random_W8_L64 seed 5",
+                      "S_sha256": sha256_of(S_h),
+                      "x_sha256": sha256_of(x_h)}))
+    stamps = torch.zeros((50, ks.N_SMALL_STAMPS), dtype=torch.int64,
+                         device=dev)
+    for r in range(stamps.shape[0]):
+        ks.schur_reduce_small(Hpp, B, G, -rp, pm, lam, stamps=stamps[r])
+    torch.cuda.synchronize()
+    assert bool((stamps.diff(dim=1) >= 0).all()), "K3a stamps"
+    kernel_ms = float((stamps[:, -1] - stamps[:, 0]).double().mean()) / 1e6
     n, C = B.shape
     prod, n_free = schur_product_ops(lin, window)
     timing = dict(
@@ -406,10 +449,49 @@ def check_k3a(torch, ks, graph, solver_schur, window, factors, robust):
         per_op_ms=_time_ms(lambda: solver_schur.solve_schur(lin, window,
                                                             lam)),
         reduce_ms=_time_ms(lambda: ks.schur_reduce(lin, window, lam)),
+        kernel_ms_stamped=kernel_ms,
         work=(4 * (n * n + 2 * n * C + 2 * n + 1) + 4 * (n * n + n),
               prod + n_free + _chol_ops(n_free)),
     )
     return worst, timing
+
+
+def sha256_of(*tensors) -> str:
+    """sha256 of the tensors' f32 bytes, with -0 taken as +0."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update((t.float() + 0.0).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def check_k3a_equals_k3b(torch, ks, graph, dev):
+    """At lambda = 0 with every pose free, K3a's S equals K3b's bit for bit
+    (-0 taken as +0): both sum each entry over k in ascending order with
+    fmaf from 0, K3a skipping only exact-zero terms.  On random_system
+    and on dense B and G (every term non-zero)."""
+    lam0 = torch.zeros((), device=dev)
+    w, f = random_system(torch, 8, 64, 72, 11, dev)
+    w = w._replace(pose_fixed=torch.zeros_like(w.pose_fixed))
+    _, B, G, Hpp, pm, rp = ks.reduce_operands(
+        graph.linearize(w, f, analytic_planes=True), w, lam0)
+    rng = np.random.default_rng(7)
+    n, C = 48, 192
+    dense = [torch.as_tensor(rng.normal(size=sh).astype(np.float32),
+                             device=dev) for sh in ((n, n), (n, C), (n, C),
+                                                    (n,))]
+    for name, (Hpp_, B_, G_, pm_, rhs) in (
+            ("random_W8_L64_all_free", (Hpp, B, G, pm, -rp)),
+            ("dense_n48_C192", (dense[0], dense[1], dense[2],
+                                torch.ones(n, device=dev), dense[3]))):
+        assert bool((pm_ == 1).all())
+        S_a, _ = ks.schur_reduce_small(Hpp_, B_, G_, rhs, pm_, lam0)
+        S_b = ks.schur_gemm(Hpp_, B_, G_)
+        torch.cuda.synchronize()
+        same = torch.equal(S_a + 0.0, S_b + 0.0)
+        print(json.dumps({"check": "K3a", "case": f"S equals K3b's {name}",
+                          "max_abs_diff": float((S_a - S_b).abs().max()),
+                          "pass": same}))
+        assert same, f"K3a S differs from K3b's on {name}"
 
 
 def check_k3b(torch, ks, cholesky, graph, dev):
@@ -532,43 +614,50 @@ def check_k4(torch, cholesky):
     return errs, timing
 
 
-def check_k2(torch, pp, depth_render, K, masks, ref):
-    """K2 vs depth_from_popup on real 480x640 pop-ups."""
+def check_k2(torch, pp, depth_render, K, K_120x160, masks, ref):
+    """K2 vs depth_from_popup on real 480x640 pop-ups (with the sha256 of
+    each output), the 120x160 test frame, and a 479x161 crop (rows
+    crossing quads, a 3-pixel scalar tail); timed on frame 0."""
     worst, timing = 0.0, None
     pcfg = pp.PopupConfig()
-    for i in (0, 40, 80, 120):
-        mask = torch.as_tensor(masks[i], device="cuda")
+    small = pp.PopupConfig(smooth_radius=3, nms_radius=5, min_cols=6)
+    cases = [(str(i), masks[i], K, pcfg, i) for i in (0, 40, 80, 120)]
+    cases += [("120x160 frame 60", masks[60, ::4, ::4], K_120x160, small, 60),
+              ("479x161 frame 40", masks[40, :479, :161], K, pcfg, 40)]
+    for name, m, K_, cfg, i in cases:
+        mask = torch.as_tensor(np.ascontiguousarray(m), device="cuda")
         R = torch.as_tensor(ref["R"][i], device="cuda")
         t = torch.as_tensor(ref["t"][i], device="cuda")
-        res = pp.pop_up(K, mask, R, t, pcfg)
-        d_k = depth_render.depth_render(K, res, mask, R, t)
-        d_p = pp.depth_from_popup(K, res, mask, R, t)
+        res = pp.pop_up(K_, mask, R, t, cfg)
+        d_k = depth_render.depth_render(K_, res, mask, R, t)
+        d_p = pp.depth_from_popup(K_, res, mask, R, t)
         torch.cuda.synchronize()
         assert d_k.shape == mask.shape and torch.isfinite(d_k).all()
         diff = (d_k - d_p).abs()
         err = float(diff.max())
         n_bad = int((diff > K2_ATOL + K2_RTOL * d_p.abs()).sum())
-        print(json.dumps({"check": "K2", "frame": i, "max_abs_err": err,
+        print(json.dumps({"check": "K2", "frame": name, "max_abs_err": err,
                           "pixels_out_of_tol": n_bad,
                           "rtol": K2_RTOL, "atol": K2_ATOL,
-                          "pass": n_bad == 0}))
-        assert n_bad == 0, f"K2 frame {i}: {n_bad} pixels out of tolerance"
+                          "sha256": sha256_of(d_k), "pass": n_bad == 0}))
+        assert n_bad == 0, f"K2 {name}: {n_bad} pixels out of tolerance"
         worst = max(worst, err)
-        if timing is None:
-            H, W = mask.shape
-            S = res.planes_w.shape[0]
-            # mask, depth, camera/pose/ground, planes, endpoints, flags
-            nbytes = H * W * (1 + 4) + 4 * (4 + 9 + 3 + 4) + S * (
-                4 * 4 + 4 * 6 + 3)
-            ops = k2_ops(H, W, int(res.valid.sum()))
-            timing = dict(
-                ms=_time_ms(lambda: depth_render.depth_render(
-                    K, res, mask, R, t)),
-                plain_ms=_time_ms(lambda: pp.depth_from_popup(
-                    K, res, mask, R, t), n=20),
-                library_ms=None,
-                work=(nbytes, ops),
-            )
+        if name != "0":
+            continue
+        H, W = mask.shape
+        S = res.planes_w.shape[0]
+        # mask, depth, camera/pose/ground, planes, endpoints, flags
+        nbytes = H * W * (1 + 4) + 4 * (4 + 9 + 3 + 4) + S * (
+            4 * 4 + 4 * 6 + 3)
+        ops = k2_ops(H, W, int(res.valid.sum()))
+        timing = dict(
+            ms=_time_ms(lambda: depth_render.depth_render(
+                K, res, mask, R, t)),
+            plain_ms=_time_ms(lambda: pp.depth_from_popup(
+                K, res, mask, R, t), n=20),
+            library_ms=None,
+            work=(nbytes, ops),
+        )
     return worst, timing
 
 
@@ -655,6 +744,11 @@ def accept_diffs(acc, cost, ref_acc, ref_cost):
     return int(diff.sum()), int((diff & ~tie).sum()), np.argwhere(diff & ~tie)
 
 
+def _first_false(ok) -> int:
+    """Index of the first False in a 1-D bool array, else its length."""
+    return int(np.argmin(ok)) if not ok.all() else len(ok)
+
+
 def run_path(torch, name, slam_mod, pp, run, counters, ref, gpu, scfg, n,
              inputs, warm_frames=4, depth=False):
     """One path through ``run_sequence_chunked``: a short warm-up, then
@@ -663,10 +757,14 @@ def run_path(torch, name, slam_mod, pp, run, counters, ref, gpu, scfg, n,
     prefixed ``name``); returns the launches.
 
     Where the reference records each frame's pop-up outcome, the
-    trajectory is held over the frames before the first frame whose set
-    of valid walls differs from the reference's, and that frame is
-    reported: past it the two runs follow different wall sets (PERF.md,
-    "pop-up branch")."""
+    trajectory and the end state are held over the frames before the
+    first frame whose set of valid walls differs from the reference's
+    (``frames_held``; past it the two runs follow different wall sets,
+    PERF.md "pop-up branch"), and the accept decisions over the frames
+    before the first frame whose valid walls or their column counts
+    differ (``accept_frames_held``): from there on the two runs solve
+    different problems, and a decision between two near-equal costs may
+    fall either way.  Each range that ends early is reported."""
     masks_d, oR, ot, R0, t0, K, pcfg = inputs
     solver = scfg.solver
     rec, pops = [], []
@@ -725,40 +823,54 @@ def run_path(torch, name, slam_mod, pp, run, counters, ref, gpu, scfg, n,
         "store_valid": bool((state.store.valid.cpu().numpy()
                              == ref[key + "store_valid"]).all()),
     }
-    held = n
+    held = acc_held = n
     if key + "popup_valid" in ref:
         valid = torch.stack([v for v, _ in pops]).cpu().numpy()
         n_pts = torch.stack([c for _, c in pops]).cpu().numpy()
-        same = (valid == ref[key + "popup_valid"][:n]).all(-1)
-        if not same.all():
-            held = int(np.argmin(same))
+        ref_valid = ref[key + "popup_valid"][:n]
+        same = (valid == ref_valid).all(-1)
+        same_pts = same & ((n_pts == ref[key + "popup_n_points"][:n])
+                           | ~ref_valid).all(-1)
+        held = _first_false(same)
+        acc_held = _first_false(same_pts)
     out = {
         "path": name, "solver": solver, "window_size": scfg.window_size,
         "frames": n, "seconds": dt, "frames_per_s": n / dt, "card": gpu,
         "launches": launches, "traj_max_abs_err_m": float(t_frame.max()),
         "traj_bound_m": TRAJ_BOUND_M, "frames_held": held,
+        "accept_frames_held": acc_held,
         "traj_held_max_abs_err_m": float(t_frame[:held].max()),
         "frames_over_bound": [int(i) for i in
                               np.nonzero(t_frame > TRAJ_BOUND_M)[0]],
         "R_max_abs_err": R_err, "discrete_match": discrete,
     }
-    if held < n:
-        out["popup_branch"] = {
-            "frame": held,
-            "valid": valid[held].astype(int).tolist(),
-            "ref_valid": ref[key + "popup_valid"][held].astype(int).tolist(),
-            "n_points": n_pts[held].tolist(),
-            "ref_n_points": ref[key + "popup_n_points"][held].tolist(),
-        }
+    for what, f in (("popup_branch", held), ("popup_points_differ",
+                                              acc_held)):
+        if f < n:
+            out[what] = {
+                "frame": f,
+                "valid": valid[f].astype(int).tolist(),
+                "ref_valid": ref_valid[f].astype(int).tolist(),
+                "n_points": n_pts[f].tolist(),
+                "ref_n_points": ref[key + "popup_n_points"][f].tolist(),
+            }
     n_clear = 0
     if rec:
-        acc = torch.stack([a for a, _ in rec]).cpu().numpy()[:held]
-        cost = torch.stack([c for _, c in rec]).cpu().numpy()[:held]
+        acc = torch.stack([a for a, _ in rec]).cpu().numpy()[:acc_held]
+        cost = torch.stack([c for _, c in rec]).cpu().numpy()[:acc_held]
         n_diff, n_clear, where = accept_diffs(
-            acc, cost, ref[key + "accepted"][:held], ref[key + "cost"][:held])
+            acc, cost, ref[key + "accepted"][:acc_held],
+            ref[key + "cost"][:acc_held])
         out.update(accept_decisions_held=int(acc.size),
                    accept_diff_from_reference=n_diff,
                    accept_diff_not_ties=n_clear)
+        # diagnostic, not held: the same count over frames_held, where the
+        # pop-up column counts may already differ
+        acc_v = torch.stack([a for a, _ in rec]).cpu().numpy()[:held]
+        cost_v = torch.stack([c for _, c in rec]).cpu().numpy()[:held]
+        out["accept_diff_not_ties_over_frames_held"] = accept_diffs(
+            acc_v, cost_v, ref[key + "accepted"][:held],
+            ref[key + "cost"][:held])[1]
         if n_clear:   # each differing decision that is not a tie
             out["accept_diff_not_ties_at"] = [
                 {"frame": int(f), "iteration": int(k),
@@ -828,7 +940,9 @@ def main() -> int:
     # ---- 2. every kernel against its plain version ----
     t_ph = time.perf_counter()
     k4_err, k4_t = check_k4(torch, cholesky)
-    k2_err, k2_t = check_k2(torch, pp, depth_render, K, masks, ref)
+    k2_err, k2_t = check_k2(torch, pp, depth_render, K,
+                            Intrinsics.create(80.0, 80.0, 80.0, 60.0,
+                                              device="cuda"), masks, ref)
     K_cpu = Intrinsics.create(320.0, 320.0, 320.0, 240.0, device="cpu")
     st_cpu = slam_init(scfg, R0, t0, device="cpu")
     st_cpu, _ = run_sequence_chunked(st_cpu, masks[:24], oR[:24], ot[:24],

@@ -38,8 +38,7 @@ _SIGNATURES = {
     "popup_fused_gn": [_P] * 14 + [_F] + [_I] * 6
     + [_I, _F, _I, _F, _I, _F] + [_P] * 8,
     "popup_plane_terms": [_P] * 11 + [_I, _I, _I, _P],
-    "popup_schur_small_smem_bytes": [_I],
-    "popup_schur_reduce_small": [_P] * 8 + [_I, _I, _P],
+    "popup_schur_reduce_small": [_P] * 8 + [_I, _I, _P, _P],
     "popup_schur_gemm": [_P] * 4 + [_I, _I, _P],
 }
 

@@ -2,11 +2,13 @@
 plain PyTorch version.
 
 Replaces ``pop_up_slam_tpu/ops/depth_render.py::depth_render_pallas``.
-The CUDA kernel (``csrc/depth_render.cu``) runs one thread per pixel on a
-2-D grid.  Each block's prologue stages the camera, pose, ground plane and
-per-wall terms in shared memory (one thread per wall, from the pop-up's
-own tensors), so a render is one launch with no parameter packing; the
-bool mask is read as bytes and the ragged edge is masked per thread.  It
+The CUDA kernel (``csrc/depth_render.cu``) is one wave of blocks (at most
+two per SM) walking the row-major image with a grid-stride loop, four
+pixels per thread and step: one 4-byte mask load and one 16-byte depth
+store, scalar for the last ``H*W % 4`` pixels.  Each block's prologue
+stages the camera, pose, ground plane and per-wall terms in shared memory
+(one thread per wall, from the pop-up's own tensors), so a render is one
+launch with no parameter packing; ground pixels skip the wall loop.  It
 is memory- and launch-bound (0.3 MB of mask read, 1.2 MB of depth written
 per 480x640 frame); it reads and writes each pixel once, coalesced.  The
 plain version is :func:`..popup.popup.depth_from_popup`.
@@ -42,6 +44,23 @@ def depth_render(K, res, ground_mask: torch.Tensor, R_wc: torch.Tensor,
         return depth_from_popup(K, res, ground_mask, R_wc, t_wc,
                                 max_depth=max_depth, wall_height=wall_height,
                                 extent_pad=extent_pad)
+    # operands: held until the launch has been enqueued
+    args, out, operands = launch_args(K, res, ground_mask, R_wc, t_wc,
+                                      max_depth, wall_height, extent_pad)
+    lib = library()
+    depth_render.launches += 1
+    check(lib.popup_depth_render(*args), "depth_render")
+    return out
+
+
+depth_render.launches = 0
+
+
+def launch_args(K, res, ground_mask, R_wc, t_wc, max_depth, wall_height,
+                extent_pad) -> tuple:
+    """(the arguments of ``popup_depth_render`` for CUDA tensors, the
+    output (H, W) they point into, the operand tensors they point to,
+    which must stay alive until the launch)."""
     dev = ground_mask.device
     if dev.type != "cuda":
         raise ValueError(f"depth_render: unsupported device {dev}")
@@ -64,14 +83,8 @@ def depth_render(K, res, ground_mask: torch.Tensor, R_wc: torch.Tensor,
         _operand(res.valid, (S,), b8, dev, "valid"),
     ]
     out = torch.empty((H, W), dtype=f32, device=dev)
-    lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    depth_render.launches += 1
-    check(lib.popup_depth_render(
-        *(x.data_ptr() for x in ins), S, ground_mask.data_ptr(),
-        out.data_ptr(), H, W, float(max_depth), float(wall_height),
-        float(extent_pad), stream), "depth_render")
-    return out
-
-
-depth_render.launches = 0
+    args = (*(x.data_ptr() for x in ins), S, ground_mask.data_ptr(),
+            out.data_ptr(), H, W, float(max_depth), float(wall_height),
+            float(extent_pad), stream)
+    return args, out, ins

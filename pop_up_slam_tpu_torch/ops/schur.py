@@ -14,9 +14,11 @@ The route keeps the reference's split (``schur_pallas.py:154``):
 - 6W <= 128: **K3a** :func:`schur_reduce_small` (``csrc/schur_reduce.cu``),
   one launch: the product, damping, mask and the Cholesky solve with S
   in one block's shared memory (the ``chol.cuh`` routine, K4's
-  pivot-skip rule).  Bound by its pivot chain (latency); lambda is read
-  from device memory, so LM and dog-leg iterations never wait on the
-  host.
+  pivot-skip rule).  The product sums each pose pair only over the
+  landmarks both observe (observer sets built in the kernel), in the
+  dense sum's order, so S keeps the dense ordered sum's bits.  Bound by
+  latency; lambda is read from device memory, so LM and dog-leg
+  iterations never wait on the host.
 - 6W > 128: **K3b** :func:`schur_gemm`, a tiled f32 GEMM on the CUDA
   cores, then damping and mask as PyTorch ops and **K4**
   :func:`..cholesky.chol_solve` (one block's shared memory up to
@@ -37,6 +39,9 @@ from ._build import check, library
 from .cholesky import chol_solve, chol_solve_plain
 
 MAX_SMALL_N = 128   # the reference's single-tile route: 6W <= 128
+# K3a's phase stamps: start, observer sets built, product, damping and
+# mask, Cholesky solve
+N_SMALL_STAMPS = 5
 
 
 def damp_mask(S: torch.Tensor, lam: torch.Tensor,
@@ -62,16 +67,21 @@ def schur_reduce_small_plain(Hpp, B, G, rhs, pm, lam):
 
 
 def _check(name: str, dev, *specs):
+    f32 = torch.float32
     for x, shape in specs:
+        # one test per tensor on the launch path (host time), the reason
+        # only on failure
+        if (x.dtype == f32 and x.shape == shape and x.is_contiguous()
+                and x.device == dev):
+            continue
         if x.device != dev:
             raise ValueError(f"{name}: all inputs must lie on {dev}")
         if tuple(x.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(x.shape)}, want "
                              f"{tuple(shape)}")
-        if x.dtype != torch.float32:
+        if x.dtype != f32:
             raise ValueError(f"{name}: float32 only")
-        if not x.is_contiguous():
-            raise ValueError(f"{name}: inputs must be contiguous")
+        raise ValueError(f"{name}: inputs must be contiguous")
 
 
 def schur_gemm(Hpp: torch.Tensor, B: torch.Tensor,
@@ -97,11 +107,13 @@ def schur_gemm(Hpp: torch.Tensor, B: torch.Tensor,
 schur_gemm.launches = 0
 
 
-def schur_reduce_small(Hpp, B, G, rhs, pm, lam):
+def schur_reduce_small(Hpp, B, G, rhs, pm, lam, stamps=None):
     """K3a: (S (n, n), x (n,)) — S = Hpp - B G^T damped by ``lam`` (a 0-d
     device tensor) and masked by ``pm``, x solving S x = rhs * pm, for
     n <= 128.  CUDA tensors launch the kernel; CPU tensors run the plain
-    version."""
+    version.  ``stamps``, an int64 CUDA tensor of ``N_SMALL_STAMPS``
+    slots, receives the kernel's ``%globaltimer`` at its phase
+    boundaries (ns; for the profile script)."""
     dev = B.device
     if dev.type == "cpu":
         return schur_reduce_small_plain(Hpp, B, G, rhs, pm, lam)
@@ -113,6 +125,11 @@ def schur_reduce_small(Hpp, B, G, rhs, pm, lam):
     if not 1 <= n <= MAX_SMALL_N:
         raise ValueError(f"schur_reduce_small: n={n} outside "
                          f"1..{MAX_SMALL_N}")
+    if stamps is not None and (stamps.device != dev
+                               or stamps.dtype != torch.int64
+                               or stamps.shape != (N_SMALL_STAMPS,)):
+        raise ValueError("schur_reduce_small: stamps must be int64 "
+                         f"({N_SMALL_STAMPS},) on {dev}")
     S = torch.empty((n, n), dtype=torch.float32, device=dev)
     x = torch.empty((n,), dtype=torch.float32, device=dev)
     lib = library()
@@ -121,7 +138,8 @@ def schur_reduce_small(Hpp, B, G, rhs, pm, lam):
     check(lib.popup_schur_reduce_small(
         Hpp.data_ptr(), B.data_ptr(), G.data_ptr(), rhs.data_ptr(),
         pm.data_ptr(), lam.data_ptr(), S.data_ptr(), x.data_ptr(), n, C,
-        stream), "schur_reduce_small")
+        stamps.data_ptr() if stamps is not None else None, stream),
+        "schur_reduce_small")
     return S, x
 
 

@@ -121,6 +121,34 @@ def _window_reduce_max(x: torch.Tensor, radius: int) -> torch.Tensor:
     return xp.unfold(0, 2 * radius + 1, 1).amax(dim=-1)
 
 
+def _xla_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive f32 prefix sum along the last dim, in the order of the
+    reference's ``jnp.cumsum`` as XLA runs it on the CPU: a recursive
+    blocked scan with base 16.  The rows of 16 (the tail zero-padded) are
+    summed left to right, their totals are scanned the same way, and each
+    row then adds the total of the rows before it.
+
+    The port reproduces the reference's arithmetic, it does not fix it:
+    where a box sum is empty its value is the residue of this order, and
+    that residue decides which columns a corner falls on (the reference
+    trajectories were made with it).  ``torch.cumsum`` sums in double on
+    the CPU and in a parallel order on the card.  f32 adds round
+    correctly on both devices, so these 15 column adds and the offset add
+    give the reference's bits on either."""
+    n = x.shape[-1]
+    m = -(-n // 16)
+    # pad copies, so the in-place adds never write into x
+    y = torch.nn.functional.pad(x, (0, 16 * m - n)).reshape(
+        *x.shape[:-1], m, 16)
+    cols = y.unbind(-1)  # views of y's 16 columns
+    for j in range(1, 16):
+        cols[j].add_(cols[j - 1])
+    if m > 1:
+        off = _xla_cumsum(cols[15])
+        y[..., 1:, :] += off[..., :-1, None]
+    return y.reshape(*x.shape[:-1], 16 * m)[..., :n]
+
+
 def _angle_diff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     d = a - b
     return torch.abs(torch.atan2(torch.sin(d), torch.cos(d)))
@@ -134,14 +162,14 @@ def segment_boundary(pts_w: torch.Tensor, pt_ok: torch.Tensor,
     k = cfg.smooth_radius
     ok_f = pt_ok.to(pts_w.dtype)
 
-    def box_sum(x):
-        # sum x[i-k..i+k] = P[i+2k+1] - P[i], P = cumsum(pad(x, (k+1, k)))
-        P = torch.cumsum(torch.nn.functional.pad(x, (k + 1, k)), dim=0)
-        return P[2 * k + 1:] - P[:Wd]
-
-    den = torch.clamp(box_sum(ok_f), min=1e-6)
-    sx = box_sum(pts_w[:, 0] * ok_f) / den
-    sy = box_sum(pts_w[:, 1] * ok_f) / den
+    # box sums of ok, x*ok, y*ok as one (3, Wd) scan:
+    # sum x[i-k..i+k] = P[i+2k+1] - P[i], P = cumsum(pad(x, (k+1, k)))
+    X = torch.stack([ok_f, pts_w[:, 0] * ok_f, pts_w[:, 1] * ok_f])
+    P = _xla_cumsum(torch.nn.functional.pad(X, (k + 1, k)))
+    box = P[:, 2 * k + 1:] - P[:, :Wd]
+    den = torch.clamp(box[0], min=1e-6)
+    sx = box[1] / den
+    sy = box[2] / den
     dx = torch.roll(sx, -k) - torch.roll(sx, k)
     dy = torch.roll(sy, -k) - torch.roll(sy, k)
     theta = torch.atan2(dy, dx)

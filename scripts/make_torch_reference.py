@@ -7,7 +7,8 @@ per-frame pose and the final discrete state.
 
 ``gn`` (``pop_up_slam_tpu_torch/data/corridor_ref.npz``): all 144 frames
 at the production configuration, ``SlamConfig()`` widths (W=8, L=64,
-D=9, 2 GN iterations), fused GN body forced on.
+D=9, 2 GN iterations), fused GN body forced on, with each frame's
+``popup_valid`` / ``popup_n_points`` as below.
 
 ``solvers`` (``pop_up_slam_tpu_torch/data/corridor_ref_solvers.npz``),
 three runs, keys prefixed ``lm_``, ``dogleg_`` and ``lm24_``:
@@ -106,8 +107,39 @@ def _run(n: int, **overrides):
     return out
 
 
+def _record_pop_ups():
+    """Wrap the reference's ``pop_up`` so that each frame's wall validity
+    and column counts are appended, in order, to the returned list."""
+    import jax
+
+    from pop_up_slam_tpu.popup import popup as jpp
+
+    popups = []
+    pop_up = jpp.pop_up
+
+    def recording_pop_up(*args, **kwargs):
+        res = pop_up(*args, **kwargs)
+        jax.debug.callback(
+            lambda v, n: popups.append((np.asarray(v), np.asarray(n))),
+            res.valid, res.n_points, ordered=True)
+        return res
+
+    jpp.pop_up = recording_pop_up
+    return popups
+
+
+def _pop_up_keys(popups, n):
+    out = dict(
+        popup_valid=np.stack([v for v, _ in popups]).astype(bool),
+        popup_n_points=np.stack([c for _, c in popups]).astype(np.int32))
+    assert out["popup_valid"].shape[0] == n
+    return out
+
+
 def write_gn():
+    popups = _record_pop_ups()
     out = _run(144, fused="on")
+    out.update(_pop_up_keys(popups, 144))
     np.savez_compressed(OUT, **out)
     print(f"wrote {OUT}: n_kf={int(out['n_kf'])} "
           f"n_overflow={int(out['n_overflow'])} "
@@ -118,7 +150,6 @@ def write_solvers():
     import jax
 
     from pop_up_slam_tpu.pipeline import slam as jslam
-    from pop_up_slam_tpu.popup import popup as jpp
 
     accepted, cost = [], []
 
@@ -134,19 +165,9 @@ def write_solvers():
             return window, stats
         return wrapped
 
-    popups = []
-    pop_up = jpp.pop_up
-
-    def recording_pop_up(*args, **kwargs):
-        res = pop_up(*args, **kwargs)
-        jax.debug.callback(
-            lambda v, n: popups.append((np.asarray(v), np.asarray(n))),
-            res.valid, res.n_points, ordered=True)
-        return res
-
+    popups = _record_pop_ups()
     jslam.lm_solve = recording(jslam.lm_solve)
     jslam.dogleg_solve = recording(jslam.dogleg_solve)
-    jpp.pop_up = recording_pop_up
     out = {}
     for name, (overrides, n) in SOLVER_RUNS.items():
         accepted.clear()
@@ -156,10 +177,7 @@ def write_solvers():
         run.pop("pf_lm")
         run["accepted"] = np.stack(accepted).astype(bool)
         run["cost"] = np.stack(cost).astype(np.float32)
-        run["popup_valid"] = np.stack([v for v, _ in popups]).astype(bool)
-        run["popup_n_points"] = np.stack([c for _, c in popups]).astype(
-            np.int32)
-        assert run["popup_valid"].shape[0] == n
+        run.update(_pop_up_keys(popups, n))
         assert run["accepted"].shape[0] == n, run["accepted"].shape
         out.update({f"{name}_{k}": v for k, v in run.items()})
         print(f"{name}: n_kf={int(run['n_kf'])} "

@@ -37,6 +37,7 @@ _DISCRETE = ("n_points", "valid", "clipped", "boundary_v", "boundary_ok",
 
 # the reference pop-up, compiled once per configuration for the module
 _pop_up_jit = jax.jit(jpp.pop_up, static_argnames=("cfg",))
+_jax_cumsum = jax.jit(jnp.cumsum)
 
 
 def _pop_up_both(mask, R, t, cfg):
@@ -158,30 +159,43 @@ def _jax_boundary_points(mask, R, t):
 def test_segment_boundary_empty_window_branch():
     """Where a column's +-smooth_radius window holds no valid boundary
     column, its box-filtered point is an empty sum over the 1e-6 floor:
-    exactly 0 in the port, the residue of the reference's cumsum
-    difference over 1e-6 there.  The tangent at the last valid columns of
-    a run reads that point, so the corner between two walls can move by
-    a few columns and a short wall's column count crosses its threshold:
-    the pop-up branch at frame 134 of the LM and dog-leg corridor runs
-    (PERF.md).  At the reference's own pose both frameworks backproject
-    the same points and split them differently only at that corner."""
+    the residue of the cumsum difference there, whose value depends on
+    the order of the sum.  The tangent at the last valid columns of a run
+    reads that point, so the corner between two walls moves by a few
+    columns with it and a short wall's column count crosses its
+    threshold: the pop-up at frame 134 of the LM and dog-leg corridor
+    runs (PERF.md).  The port's box sums take the reference's order
+    (``_xla_cumsum``), so at the reference's own pose both frameworks
+    split the same points into the same walls, column for column."""
     mask, R, t = _empty_window_case()
     pts, ok, seg_j = (np.array(x) for x in _jax_boundary_points(
         jnp.asarray(mask), jnp.asarray(R), jnp.asarray(t)))
     seg_t = tpp.segment_boundary(torch.as_tensor(pts), torch.as_tensor(ok),
                                  tpp.PopupConfig()).numpy()
-    diff = np.flatnonzero(seg_j != seg_t)
-    np.testing.assert_array_equal(diff, np.arange(478, 484))
+    np.testing.assert_array_equal(seg_t, seg_j)
     assert (np.bincount(seg_j[seg_j >= 0]).tolist()
             == [12, 322, 7])                       # wall 2: 7 columns
-    assert (np.bincount(seg_t[seg_t >= 0]).tolist()
-            == [12, 316, 13])                      # wall 2: 13 columns
-    # the first column whose window is empty: 7 past the run's end
+    assert (np.bincount(seg_t[seg_t >= 0]).tolist() == [12, 322, 7])
+    # the first column whose window is empty: 7 past the run's end; its
+    # box sum is a non-zero residue, the same in both
     k = tpp.PopupConfig().smooth_radius
     last = int(np.flatnonzero(ok)[-1])
     x = np.pad(pts[:, 0] * ok, (k + 1, k)).astype(np.float32)
-    P_j = np.asarray(jax.jit(jnp.cumsum)(jnp.asarray(x)))
-    P_t = torch.cumsum(torch.as_tensor(x), 0).numpy()
+    P_j = np.asarray(_jax_cumsum(jnp.asarray(x)))
+    P_t = tpp._xla_cumsum(torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(P_t, P_j)
     i = last + k + 1
-    assert P_t[i + 2 * k + 1] - P_t[i] == 0.0
-    assert P_j[i + 2 * k + 1] - P_j[i] != 0.0
+    assert P_t[i + 2 * k + 1] - P_t[i] == P_j[i + 2 * k + 1] - P_j[i] != 0.0
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 175, 655, 1000])
+def test_xla_cumsum_matches_jax(n):
+    """The port's box-sum scan equals the reference's ``jnp.cumsum`` bit
+    for bit: lengths within one row of 16, at its edges, the 120x160 and
+    480x640 frames' padded widths (160 + 15, 640 + 15) and three levels
+    of rows (1000)."""
+    x = (np.random.default_rng(n).normal(size=n) * 10).astype(np.float32)
+    want = np.asarray(_jax_cumsum(jnp.asarray(x)))
+    np.testing.assert_array_equal(tpp._xla_cumsum(torch.as_tensor(x)).numpy(),
+                                  want)
+
