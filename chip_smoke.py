@@ -33,18 +33,20 @@
    ``SlamConfig`` (every frame a keyframe, chunks of 16), rendering each
    frame's depth as the reference ``entry()`` does.  Kernel launch counters
    are zeroed just before and read just after; the trajectory is held
-   against the committed JAX reference ``pop_up_slam_tpu_torch/data/
-   corridor_ref.npz`` (which also records the reference's pop-up walls).
+   over all 144 frames against the committed JAX reference
+   ``pop_up_slam_tpu_torch/data/corridor_ref.npz`` (which also records
+   the reference's pop-up walls: where the run's first differ is
+   reported, not held).
 4. Drives the solver paths the same way, each against its committed JAX
    run in ``corridor_ref_solvers.npz``: ``solver="lm"`` and
    ``solver="dogleg"`` over the 144 frames at the production widths (K3a
    and K5 twice per keyframe), and ``solver="lm"`` with ``window_size=24``
    over the first 48 frames (6W = 144: K3b, K4 and K5 twice per keyframe).
-   Every path is held over ``frames_held`` (the frames before its pop-up
-   first finds another set of valid walls than the reference's), the
-   accept decisions over ``accept_frames_held`` (before its valid walls
-   or their column counts first differ); prints how many decisions
-   differ from the reference's.
+   Each is held over ``frames_held`` (the frames before its pop-up first
+   finds another set of valid walls than the reference's), its accept
+   decisions over ``accept_frames_held`` (before its valid walls or
+   their column counts first differ; at least 8 keyframes); prints how
+   many decisions differ from the reference's.
 5. Prints the ``{"kernels": [...]}`` line (one row per kernel; K4's row
    is lm24's n=144, its other timed sizes, which no path launches, are
    nested under ``other_n`` with 0 launches), the card line, and last
@@ -730,6 +732,10 @@ def check_k1(torch, _build, fused_gn, slam_mod, state, scfg):
 
 ACCEPT_TIE = 1e-4   # relative cost change below which an accept is a tie
 MIN_HELD = 0.9      # a pop-up branch must not come before 90 % of a path
+# a solver path must hold the accept decisions of at least this many
+# keyframes (the production window's length; the card's lm, dogleg and
+# lm24 runs hold 18, 18 and 11, PERF.md)
+ACCEPT_MIN_FRAMES = 8
 
 
 def accept_diffs(acc, cost, ref_acc, ref_cost):
@@ -756,15 +762,18 @@ def run_path(torch, name, slam_mod, pp, run, counters, ref, gpu, scfg, n,
     Holds the trajectory and discrete state against ``ref`` (keys
     prefixed ``name``); returns the launches.
 
-    Where the reference records each frame's pop-up outcome, the
-    trajectory and the end state are held over the frames before the
-    first frame whose set of valid walls differs from the reference's
-    (``frames_held``; past it the two runs follow different wall sets,
-    PERF.md "pop-up branch"), and the accept decisions over the frames
-    before the first frame whose valid walls or their column counts
-    differ (``accept_frames_held``): from there on the two runs solve
-    different problems, and a decision between two near-equal costs may
-    fall either way.  Each range that ends early is reported."""
+    The main path's trajectory is held over all ``n`` frames.  Where the
+    reference records each frame's pop-up outcome, a solver path's
+    trajectory is held over the frames before the first frame whose set
+    of valid walls differs from the reference's (``frames_held``; past
+    it the two runs follow different wall sets, PERF.md "pop-up
+    branch"), and its accept decisions over the frames before the first
+    frame whose valid walls or their column counts differ
+    (``accept_frames_held``, at least ``ACCEPT_MIN_FRAMES``): from there
+    on the two runs solve different problems, and a decision between two
+    near-equal costs may fall either way.  Each range that ends early,
+    the frames whose pop-up differs and the error of every frame are
+    reported."""
     masks_d, oR, ot, R0, t0, K, pcfg = inputs
     solver = scfg.solver
     rec, pops = [], []
@@ -823,7 +832,8 @@ def run_path(torch, name, slam_mod, pp, run, counters, ref, gpu, scfg, n,
         "store_valid": bool((state.store.valid.cpu().numpy()
                              == ref[key + "store_valid"]).all()),
     }
-    held = acc_held = n
+    branch = acc_held = n
+    differ = []
     if key + "popup_valid" in ref:
         valid = torch.stack([v for v, _ in pops]).cpu().numpy()
         n_pts = torch.stack([c for _, c in pops]).cpu().numpy()
@@ -831,8 +841,10 @@ def run_path(torch, name, slam_mod, pp, run, counters, ref, gpu, scfg, n,
         same = (valid == ref_valid).all(-1)
         same_pts = same & ((n_pts == ref[key + "popup_n_points"][:n])
                            | ~ref_valid).all(-1)
-        held = _first_false(same)
+        branch = _first_false(same)
         acc_held = _first_false(same_pts)
+        differ = [int(i) for i in np.nonzero(~same_pts)[0]]
+    held = branch if key else n
     out = {
         "path": name, "solver": solver, "window_size": scfg.window_size,
         "frames": n, "seconds": dt, "frames_per_s": n / dt, "card": gpu,
@@ -843,9 +855,11 @@ def run_path(torch, name, slam_mod, pp, run, counters, ref, gpu, scfg, n,
         "frames_over_bound": [int(i) for i in
                               np.nonzero(t_frame > TRAJ_BOUND_M)[0]],
         "R_max_abs_err": R_err, "discrete_match": discrete,
+        "traj_abs_err_m_per_frame": t_frame.tolist(),
+        "popup_frames_differ": differ,
     }
-    for what, f in (("popup_branch", held), ("popup_points_differ",
-                                              acc_held)):
+    for what, f in (("popup_branch", branch), ("popup_points_differ",
+                                                acc_held)):
         if f < n:
             out[what] = {
                 "frame": f,
@@ -882,6 +896,8 @@ def run_path(torch, name, slam_mod, pp, run, counters, ref, gpu, scfg, n,
     print(json.dumps(out))
     assert held >= MIN_HELD * n, f"{name}: pop-up branch at frame {held}"
     assert n_clear == 0, f"{name}: {n_clear} accept decisions differ"
+    assert not rec or acc_held >= ACCEPT_MIN_FRAMES, (
+        f"{name}: pop-up column counts part at frame {acc_held}")
     assert float(t_frame[:held].max()) <= TRAJ_BOUND_M, (
         f"{name}: trajectory off the reference: "
         f"{float(t_frame[:held].max())} m")

@@ -44,23 +44,6 @@ def depth_render(K, res, ground_mask: torch.Tensor, R_wc: torch.Tensor,
         return depth_from_popup(K, res, ground_mask, R_wc, t_wc,
                                 max_depth=max_depth, wall_height=wall_height,
                                 extent_pad=extent_pad)
-    # operands: held until the launch has been enqueued
-    args, out, operands = launch_args(K, res, ground_mask, R_wc, t_wc,
-                                      max_depth, wall_height, extent_pad)
-    lib = library()
-    depth_render.launches += 1
-    check(lib.popup_depth_render(*args), "depth_render")
-    return out
-
-
-depth_render.launches = 0
-
-
-def launch_args(K, res, ground_mask, R_wc, t_wc, max_depth, wall_height,
-                extent_pad) -> tuple:
-    """(the arguments of ``popup_depth_render`` for CUDA tensors, the
-    output (H, W) they point into, the operand tensors they point to,
-    which must stay alive until the launch)."""
     dev = ground_mask.device
     if dev.type != "cuda":
         raise ValueError(f"depth_render: unsupported device {dev}")
@@ -83,8 +66,14 @@ def launch_args(K, res, ground_mask, R_wc, t_wc, max_depth, wall_height,
         _operand(res.valid, (S,), b8, dev, "valid"),
     ]
     out = torch.empty((H, W), dtype=f32, device=dev)
+    lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (*(x.data_ptr() for x in ins), S, ground_mask.data_ptr(),
-            out.data_ptr(), H, W, float(max_depth), float(wall_height),
-            float(extent_pad), stream)
-    return args, out, ins
+    depth_render.launches += 1
+    check(lib.popup_depth_render(
+        *(x.data_ptr() for x in ins), S, ground_mask.data_ptr(),
+        out.data_ptr(), H, W, float(max_depth), float(wall_height),
+        float(extent_pad), stream), "depth_render")
+    return out
+
+
+depth_render.launches = 0

@@ -24,12 +24,8 @@ or ``dogleg`` it is not, as in ``chip_smoke.py``:
    ``--launches`` launches; K1's and K4's CUDA-event time per launch;
    K3a's phase split (observer sets, product, damping and mask,
    Cholesky) from its stamps on that state's LM system (lambda 1e-5),
-   its CUDA-event and device time, and the same for builds of K3a with
-   each block size in ``--k3a-threads`` (default 256,512,1024; each a
-   copy of ``schur_reduce.cu`` with ``kSmallThreads`` replaced, built
-   beside the library); K2's device time per launch on the 480x640
-   frames 0, 40, 80, 120, and on frame 0 for builds with each
-   ``kBlocksPerSM`` in ``--k2-blocks-per-sm`` (default 1,2,4); and K4
+   its CUDA-event and device time; K2's CUDA-event and device time per
+   launch on the 480x640 frames 0, 40, 80, 120; and K4
    (``--chol-n``, default 48,144,384) beside the library calls
    ``torch.linalg.cholesky`` + ``cholesky_solve`` and ``cholesky_ex`` +
    ``cholesky_solve``, each time the mean of 200 calls, and the device
@@ -42,14 +38,10 @@ power limit come first.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
-import re
-import shutil
 import subprocess
 import sys
-import tempfile
 import time
 import warnings
 
@@ -134,10 +126,8 @@ def kernel_section(args, torch, z, masks) -> None:
               marg=marg, marg_static=slam_mod._marg_static(scfg))
     n_l = args.launches
     k1_split(torch, fused_gn, w0, factors, kw, n_l, scfg)
-    k3a_split(torch, st, factors, scfg, n_l,
-              [int(v) for v in args.k3a_threads.split(",") if v])
-    k2_device(torch, z, masks, n_l,
-              [int(v) for v in args.k2_blocks_per_sm.split(",") if v])
+    k3a_split(torch, st, factors, scfg, n_l)
+    k2_device(torch, z, masks, n_l)
 
     rng = np.random.default_rng(0)
     for n in (int(v) for v in args.chol_n.split(",") if v):
@@ -187,39 +177,11 @@ def _device_us(torch, fn, n: int, name: str) -> float:
 K3A_PHASES = ("observer_sets", "product", "damp_mask", "cholesky")
 
 
-def _variant(source: str, constant: str, value: int, symbol: str):
-    """``symbol`` from a copy of ``csrc/<source>`` built with
-    ``constexpr int <constant> = <value>;`` (a small library of its own,
-    beside the port's build)."""
-    from pop_up_slam_tpu_torch.ops import _build
-
-    src = (_build.CSRC / source).read_text()
-    src, n_sub = re.subn(rf"constexpr int {constant} = \d+;",
-                         f"constexpr int {constant} = {value};", src)
-    assert n_sub == 1, (source, constant)
-    _build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix=f"{constant}_{value}_",
-                           dir=_build.BUILD_ROOT)
-    with open(os.path.join(tmp, source), "w") as f:
-        f.write(src)
-    for header in _build.HEADERS:
-        shutil.copy(_build.CSRC / header, tmp)
-    so = os.path.join(tmp, "libvariant.so")
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                    os.path.join(tmp, source), "-o", so],
-                   check=True, capture_output=True)
-    fn = getattr(ctypes.CDLL(so), symbol)
-    fn.argtypes = _build._SIGNATURES[symbol]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def k3a_split(torch, st, factors, scfg, n_l, threads) -> None:
+def k3a_split(torch, st, factors, scfg, n_l) -> None:
     """K3a's phase split (stamps), CUDA-event and device time on the LM
-    path's system at this state, for the built kernel and for each block
-    size in ``threads``."""
+    path's system at this state."""
     from pop_up_slam_tpu_torch.factors import graph
-    from pop_up_slam_tpu_torch.ops import _build, schur
+    from pop_up_slam_tpu_torch.ops import schur
 
     lin = graph.linearize(st.window, factors, analytic_planes=True,
                           robust=scfg.robust)
@@ -227,48 +189,30 @@ def k3a_split(torch, st, factors, scfg, n_l, threads) -> None:
     _, B, G, Hpp, pm, rp = schur.reduce_operands(lin, st.window, lam)
     rhs = -rp
     n, C = B.shape
-    S = torch.empty((n, n), device="cuda")
-    x = torch.empty((n,), device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-    variants = [("built", None)] + [
-        (t, _variant("schur_reduce.cu", "kSmallThreads", t,
-                     "popup_schur_reduce_small")) for t in threads]
-    for tag, fn in variants:
-        if fn is None:
-            def launch(stamp=None):
-                schur.schur_reduce_small(Hpp, B, G, rhs, pm, lam,
-                                         stamps=stamp)
-        else:
-            def launch(stamp=None, fn=fn):
-                _build.check(fn(
-                    Hpp.data_ptr(), B.data_ptr(), G.data_ptr(),
-                    rhs.data_ptr(), pm.data_ptr(), lam.data_ptr(),
-                    S.data_ptr(), x.data_ptr(), n, C,
-                    stamp.data_ptr() if stamp is not None else None,
-                    stream), "k3a variant")
-        stamps = torch.zeros((n_l, schur.N_SMALL_STAMPS),
-                             dtype=torch.int64, device="cuda")
-        launch()
-        for r in range(n_l):
-            launch(stamps[r])
-        torch.cuda.synchronize()
-        d = stamps.diff(dim=1).double().mean(0).cpu().numpy() / 1e3
-        print(json.dumps({
-            "k3a_threads": tag, "n": n, "C": C,
-            "k3a_phase_us": dict(zip(K3A_PHASES, map(float, d))),
-            "k3a_stamped_total_us": float(d.sum()),
-            "k3a_event_ms": _event_ms(torch, launch, n_l),
-            "k3a_device_us": _device_us(torch, launch, 50,
-                                        "schur_small_kernel")}))
+
+    def launch(stamp=None):
+        schur.schur_reduce_small(Hpp, B, G, rhs, pm, lam, stamps=stamp)
+    stamps = torch.zeros((n_l, schur.N_SMALL_STAMPS), dtype=torch.int64,
+                         device="cuda")
+    launch()
+    for r in range(n_l):
+        launch(stamps[r])
+    torch.cuda.synchronize()
+    d = stamps.diff(dim=1).double().mean(0).cpu().numpy() / 1e3
+    print(json.dumps({
+        "n": n, "C": C,
+        "k3a_phase_us": dict(zip(K3A_PHASES, map(float, d))),
+        "k3a_stamped_total_us": float(d.sum()),
+        "k3a_event_ms": _event_ms(torch, launch, n_l),
+        "k3a_device_us": _device_us(torch, launch, 50,
+                                    "schur_small_kernel")}))
 
 
-def k2_device(torch, z, masks, n_l, blocks_per_sm) -> None:
+def k2_device(torch, z, masks, n_l) -> None:
     """K2's CUDA-event time and device time per launch on the 480x640
-    pop-ups of frames 0, 40, 80, 120 at the reference poses; on frame 0
-    also builds of K2 with each value of ``kBlocksPerSM`` in
-    ``blocks_per_sm``, their output checked equal to the built kernel's."""
+    pop-ups of frames 0, 40, 80, 120 at the reference poses."""
     from pop_up_slam_tpu_torch.geometry.camera import Intrinsics
-    from pop_up_slam_tpu_torch.ops import _build, depth_render
+    from pop_up_slam_tpu_torch.ops import depth_render
     from pop_up_slam_tpu_torch.popup import popup as pp
 
     ref = np.load(os.path.join(REPO, "pop_up_slam_tpu_torch", "data",
@@ -286,25 +230,6 @@ def k2_device(torch, z, masks, n_l, blocks_per_sm) -> None:
             "k2_frame": i, "k2_event_ms": _event_ms(torch, launch, n_l),
             "k2_device_us": _device_us(torch, launch, 50,
                                        "depth_render_kernel")}))
-        if i != 0:
-            continue
-        want = launch()
-        for b in blocks_per_sm:
-            fn = _variant("depth_render.cu", "kBlocksPerSM", b,
-                          "popup_depth_render")
-            args, out, operands = depth_render.launch_args(
-                K, res, m, R, t, 50.0, 2.5, 0.5)
-
-            def launch_v(fn=fn, args=args):
-                _build.check(fn(*args), "k2 variant")
-            launch_v()
-            torch.cuda.synchronize()
-            print(json.dumps({
-                "k2_blocks_per_sm": b, "k2_frame": i,
-                "equal_to_built": torch.equal(out, want),
-                "k2_event_ms": _event_ms(torch, launch_v, n_l),
-                "k2_device_us": _device_us(torch, launch_v, 50,
-                                           "depth_render_kernel")}))
 
 
 def k1_split(torch, fused_gn, w0, factors, kw, n_l, scfg) -> None:
@@ -342,8 +267,6 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true")
     ap.add_argument("--launches", type=int, default=200)
     ap.add_argument("--chol-n", default="48,144,384")
-    ap.add_argument("--k3a-threads", default="256,512,1024")
-    ap.add_argument("--k2-blocks-per-sm", default="1,2,4")
     args = ap.parse_args()
 
     import torch
