@@ -19,15 +19,18 @@
    marginal block, on a state captured mid-sequence with the window
    full, two launches bit-identical, its in-kernel time from its
    ``%globaltimer`` stamps; K5 (plane Jacobians) on that state's 72
-   factors and a random F=37 set with invalid factors; K3a (Schur
+   factors and a random F=37 set with invalid factors (the sha256 of its
+   outputs on both, two launches bit-identical, its in-kernel time from
+   its stamps); K3a (Schur
    reduction + solve) on that state's linearization, on a system with a
    gauge-fixed pose, invalid landmarks and an indefinite direction, and
    on random systems at W=21, L=100 (n = 126), W=8, L=80 and W=5, L=9;
    its S equal bit for bit to K3b's at lambda = 0 with every pose free
    (a random system and dense B, G); two launches bit-identical; the
    sha256 of its (S, x) on a seeded random system; its in-kernel time
-   from its stamps; K3b (tiled Schur GEMM, then K4) at W=23, L=9, W=24,
-   L=64 and W=40, L=64.  One JSON line per case.
+   from its stamps; K3b (sparse Schur product, then K4) at W=23, L=9,
+   W=24, L=64 and W=40, L=64, two launches bit-identical, the sha256 of
+   its S at L=64.  One JSON line per case.
 3. Drives the main path: ``run_sequence_chunked`` over all 144 frames of
    ``bench_data/corridor_inputs.npz`` at 480x640 with the production
    ``SlamConfig`` (every frame a keyframe, chunks of 16), rendering each
@@ -320,13 +323,16 @@ def _err(a, b, rtol, atol):
 
 def check_k5(torch, pj, window, pf, torch_dev):
     """K5 vs plane_terms_analytic on the state's 72 factors and on a
-    random F=37 set with invalid factors."""
+    random F=37 set with invalid factors; the sha256 of its (r, Jp, Jl)
+    on both; two launches bit-identical; its in-kernel time from its
+    stamps on the state."""
     rw, rf = random_system(torch, 6, 10, 37, 3, torch_dev)
     rpf = rf.planes._replace(valid=rf.planes.valid.clone())
     rpf.valid[:3] = False
     worst, timing = 0.0, None
     for name, w, f in (("state_F72", window, pf), ("random_F37", rw, rpf)):
         out_k = pj.plane_terms(w, f)
+        out_k2 = pj.plane_terms(w, f)
         out_p = pj.plane_terms_analytic(w, f)
         torch.cuda.synchronize()
         err, bad = 0.0, 0
@@ -335,19 +341,30 @@ def check_k5(torch, pj, window, pf, torch_dev):
             e, n_bad = _err(a, b, K5_TOL, K5_TOL)
             err, bad = max(err, e), bad + n_bad
         zero_ok = all(not a[~f.valid].any() for a in out_k)
+        same = all(torch.equal(a, b) for a, b in zip(out_k, out_k2))
         print(json.dumps({"check": "K5", "case": name,
                           "F": int(f.valid.shape[0]), "max_abs_err": err,
                           "entries_out_of_tol": bad, "rtol": K5_TOL,
                           "atol": K5_TOL, "invalid_rows_zero": zero_ok,
-                          "pass": bad == 0 and zero_ok}))
-        assert bad == 0 and zero_ok, f"K5 {name}"
+                          "two_launches_bit_identical": same,
+                          "sha256": sha256_of(*out_k),
+                          "pass": bad == 0 and zero_ok and same}))
+        assert bad == 0 and zero_ok and same, f"K5 {name}"
         worst = max(worst, err)
         if timing is None:
+            stamps = torch.zeros((50, pj.N_STAMPS), dtype=torch.int64,
+                                 device=torch_dev)
+            for r in range(stamps.shape[0]):
+                pj.plane_terms(w, f, stamps=stamps[r])
+            torch.cuda.synchronize()
+            assert bool((stamps.diff(dim=1) >= 0).all()), "K5 stamps"
             timing = dict(
                 ms=_time_ms(lambda: pj.plane_terms(w, f)),
                 plain_ms=_time_ms(lambda: pj.plane_terms_analytic(w, f),
                                   n=20),
-                library_ms=None, work=k5_work(w, f))
+                library_ms=None, work=k5_work(w, f),
+                kernel_ms_stamped=float((stamps[:, -1] - stamps[:, 0])
+                                        .double().mean()) / 1e6)
     return worst, timing
 
 
@@ -499,7 +516,8 @@ def check_k3a_equals_k3b(torch, ks, graph, dev):
 def check_k3b(torch, ks, cholesky, graph, dev):
     """K3b (+ damping, mask and K4) vs the plain tiled route at W=23, L=9,
     W=24, L=64 and W=40, L=64 (n = 240: K4's device-memory route); the
-    GEMM alone against its plain version."""
+    product alone against its plain version, two launches bit-identical,
+    and the sha256 of its S at W=24 and W=40."""
     worst, timing = 0.0, None
     for W, L, F in ((23, 9, 40), (24, 64, 216), (40, 64, 240)):
         window, factors = random_system(torch, W, L, F, 11, dev)
@@ -512,17 +530,21 @@ def check_k3b(torch, ks, cholesky, graph, dev):
         lam = torch.full((), 1e-3, device=dev)
         _, B, G, Hpp, pm, rp = ks.reduce_operands(lin, window, lam)
         S_k, S_p = ks.schur_gemm(Hpp, B, G), ks.schur_gemm_plain(Hpp, B, G)
+        S_k2 = ks.schur_gemm(Hpp, B, G)
         torch.cuda.synchronize()
         e, bad = _err(S_k, S_p, *K3B_TOL)
-        print(json.dumps({"check": "K3b", "case": name, "max_abs_err": e,
-                          "rtol": K3B_TOL[0], "atol": K3B_TOL[1],
-                          "entries_out_of_tol": bad, "pass": bad == 0}))
-        assert bad == 0, f"K3b {name}"
+        same = torch.equal(S_k, S_k2)
+        line = {"check": "K3b", "case": name, "max_abs_err": e,
+                "rtol": K3B_TOL[0], "atol": K3B_TOL[1],
+                "entries_out_of_tol": bad,
+                "two_launches_bit_identical": same}
+        if L == 64:   # for a bit-for-bit comparison with another build
+            line["S_sha256"] = sha256_of(S_k)
+        print(json.dumps({**line, "pass": bad == 0 and same}))
+        assert bad == 0 and same, f"K3b {name}"
         worst = max(worst, e)
         if W == 24:
             n, C = B.shape
-            S = ks.damp_mask(S_k, lam, pm)
-            rhs = -(rp * pm)
             timing = dict(
                 ms=_time_ms(lambda: ks.schur_gemm(Hpp, B, G)),
                 plain_ms=_time_ms(lambda: ks.schur_gemm_plain(Hpp, B, G)),

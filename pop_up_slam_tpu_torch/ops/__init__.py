@@ -6,8 +6,9 @@ version (used for CPU tensors):
 - :mod:`cholesky`      — K4, Cholesky factorize + solve (its device
                          routine is also K1's reduced solve);
 - :mod:`schur`         — K3a (Schur reduction + damping + mask + Cholesky
-                         solve, one launch) and K3b (the tiled Schur GEMM,
-                         followed by K4), the LM / dog-leg reduced solve;
+                         solve, one launch) and K3b (the sparse Schur
+                         product over tiles of whole poses, followed by
+                         K4), the LM / dog-leg reduced solve;
 - :mod:`plane_jacobians` — K5, the closed-form plane-factor Jacobians.
 
 Kernels are built from ``csrc/`` at first use (:mod:`._build`); nothing

@@ -19,6 +19,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = _PKG / "_build"
@@ -37,9 +39,9 @@ _SIGNATURES = {
     "popup_fused_gn_smem_bytes": [_I, _I, _I, _I, _I],
     "popup_fused_gn": [_P] * 14 + [_F] + [_I] * 6
     + [_I, _F, _I, _F, _I, _F] + [_P] * 8,
-    "popup_plane_terms": [_P] * 11 + [_I, _I, _I, _P],
+    "popup_plane_terms": [_P] * 9 + [_I] * 4 + [_P, _P],
     "popup_schur_reduce_small": [_P] * 8 + [_I, _I, _P, _P],
-    "popup_schur_gemm": [_P] * 4 + [_I, _I, _P],
+    "popup_schur_gemm": [_P] * 4 + [_I, _I, _P, _P],
 }
 
 _lib = None
@@ -121,3 +123,33 @@ def check(rc: int, what: str) -> None:
     """Raise on a non-zero CUDA error code returned by a launcher."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def check_inputs(name: str, dev, *specs) -> None:
+    """Raise unless every ``(tensor, shape[, dtype])`` spec lies on
+    ``dev``, has that shape and dtype (float32 where none is given) and is
+    contiguous: one test per tensor on the launch path (host time), the
+    reason only on failure."""
+    for spec in specs:
+        x, shape = spec[0], spec[1]
+        dtype = spec[2] if len(spec) > 2 else torch.float32
+        if (x.dtype == dtype and x.shape == shape and x.is_contiguous()
+                and x.device == dev):
+            continue
+        if x.device != dev:
+            raise ValueError(f"{name}: all inputs must lie on {dev}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, want "
+                             f"{tuple(shape)}")
+        if x.dtype != dtype:
+            raise ValueError(f"{name}: {x.dtype}, want {dtype}")
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def check_stamps(name: str, stamps, dev, slots: int) -> None:
+    """Raise unless the optional phase-stamp buffer is None or an int64
+    tensor of ``slots`` on ``dev``."""
+    if stamps is not None and (stamps.device != dev
+                               or stamps.dtype != torch.int64
+                               or stamps.shape != (slots,)):
+        raise ValueError(f"{name}: stamps must be int64 ({slots},) on {dev}")

@@ -35,11 +35,32 @@
 //      masked rows; then the chol.cuh solve on the block.
 // Nothing is summed with atomics, so two launches agree bit for bit.
 // Optional %globaltimer stamps at the phase boundaries feed the profile
-// script.  K3b is a plain tiled f32 GEMM on the CUDA cores (not TF32: the
-// port keeps full-f32 numerics), 16x16 output tiles with 16-deep
-// shared-memory tiles of B and G, the ragged edge masked in the kernel
-// (nothing is padded in device memory); it is bound by launch latency at
-// n = 144.
+// script.
+//
+// K3b keeps S = Hpp - B G^T alone (the wrapper damps and masks, K4
+// solves), for any n and C.  At lm24's n = 144, 3L = 192 it is bound by
+// latency too: its bytes take 0.1 us.  A plain tiled GEMM (16x16 tiles, 12
+// serial depth steps, each a round trip to memory and two barriers) spent
+// that many round trips; this one spends one a chunk:
+//   1. each block owns an output tile of whole poses, kGemmPoses a side
+//      (6 kGemmPoses rows and columns, the ragged edge masked), one thread
+//      per entry (2 poses a side: 144 blocks at n = 144, one wave; 4 a side
+//      measured slower there);
+//   2. it stages its poses' rows of B and of G in chunks of up to 64 whole
+//      landmarks with K3a's loader (every 16-byte load of a thread in
+//      flight, 16-byte stores into rows 4 banks apart) and builds, with
+//      K3a's ballot, each row pose's set of the chunk's landmarks its B
+//      rows touch and each column pose's set its G rows touch (a NaN
+//      counts);
+//   3. each entry sums only over the landmarks in both sets, in ascending
+//      order (two landmarks' loads at a time), with the dense sum's
+//      fmaf(B, G, acc) from 0: every skipped term is an exact zero for
+//      finite operands, so S keeps the dense ordered sum's bits (up to the
+//      sign of a zero), the tiled GEMM's, and equals K3a's S at
+//      lambda = 0.
+// Nothing is summed with atomics; plain f32 on the CUDA cores (not TF32:
+// the port keeps full-f32 numerics).  Optional %globaltimer stamps on
+// block (0, 0) (a diagonal tile: the longest landmark loops) split it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,18 +69,143 @@
 namespace {
 
 constexpr int kSmallThreads = 512;  // K3a, measured against 256 and 1024
-constexpr int kMaxChunkL = 64;      // K3a: landmarks per chunk (one 64-bit set)
+constexpr int kMaxChunkL = 64;      // landmarks per chunk (one 64-bit set)
 constexpr int kSmemBudget = 232448; // one block's shared memory on the H100
 constexpr int kStage = 8;           // K3a: loads in flight a thread and matrix
-constexpr int kTile = 16;           // K3b: output tile and depth tile
+constexpr int kGemmPoses = 2;       // K3b: poses a tile side
+constexpr int kGemmRows = 6 * kGemmPoses;
+// K3b: one thread per tile entry, rounded up to whole warps (the ballots)
+constexpr int kGemmThreads = (kGemmRows * kGemmRows + 31) / 32 * 32;
+// K3b: its 12 rows a matrix take at most 4 16-byte loads a thread
+constexpr int kGemmLoads = 4;
+// K3b: rows 16-byte aligned (16-byte stores), 4 banks apart (a warp's
+// reads of a column across its 6 rows hit distinct banks)
+constexpr int kGemmLd = 3 * kMaxChunkL + 4;
 
 // Thread 0 writes %globaltimer (ns) into slot i of the optional stamps (5
-// slots: start, observer sets built, product, damping and mask, solve).
+// slots; K3a: start, observer sets built, product, damping and mask,
+// solve; K3b, block (0, 0) only: start, first chunk staged, its sets
+// built, product, S stored).
 __device__ inline void stamp(unsigned long long* stamps, int i) {
   if (stamps != nullptr && threadIdx.x == 0) {
     unsigned long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
     stamps[i] = t;
+  }
+}
+
+// Stage columns [k0, k0 + cc) of nb rows of Bsrc and ng rows of Gsrc
+// (row stride C) into Bc and Gc (row stride ldc): a thread issues all its
+// loads (up to kLoads a matrix, 16 bytes each where `vec` says rows and
+// bases allow) before it stores any, so the staging costs about one round
+// trip to memory; where ldc is a multiple of 4 and Bc, Gc are 16-byte
+// aligned the stores are 16 bytes too.  A unit's row comes from a float reciprocal, not an integer
+// division: e + 0.5 over a divisor of at most 192 is at least 1 / 384 from
+// an integer, and the quotient (at most the 128 rows) is off by under
+// 2e-5.
+template <int kLoads>
+__device__ inline void stage_chunk(float* Bc, float* Gc, int ldc,
+                                   const float* __restrict__ Bsrc,
+                                   const float* __restrict__ Gsrc, int C,
+                                   int k0, int cc, int nb, int ng, bool vec,
+                                   int tid, int nt) {
+  const int rows = max(nb, ng);
+  if (vec && ((cc | k0) & 3) == 0) {
+    const int qr = cc >> 2, nq = rows * qr;
+    const float rq = 1.0f / qr;
+    const bool vst = (ldc & 3) == 0 &&
+                     (((uintptr_t)Bc | (uintptr_t)Gc) & 15) == 0;
+    for (int e0 = tid; e0 < nq; e0 += kLoads * nt) {
+      float4 vb[kLoads], vg[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int e = e0 + u * nt;
+        if (e < nq) {
+          const int i = (int)((e + 0.5f) * rq), kk = 4 * (e - i * qr);
+          if (i < nb)
+            vb[u] = *reinterpret_cast<const float4*>(Bsrc + i * C + k0 + kk);
+          if (i < ng)
+            vg[u] = *reinterpret_cast<const float4*>(Gsrc + i * C + k0 + kk);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int e = e0 + u * nt;
+        if (e < nq) {
+          const int i = (int)((e + 0.5f) * rq), kk = 4 * (e - i * qr);
+          if (i < nb) {
+            float* b = Bc + i * ldc + kk;
+            if (vst) {
+              *reinterpret_cast<float4*>(b) = vb[u];
+            } else {
+              b[0] = vb[u].x; b[1] = vb[u].y; b[2] = vb[u].z; b[3] = vb[u].w;
+            }
+          }
+          if (i < ng) {
+            float* g = Gc + i * ldc + kk;
+            if (vst) {
+              *reinterpret_cast<float4*>(g) = vg[u];
+            } else {
+              g[0] = vg[u].x; g[1] = vg[u].y; g[2] = vg[u].z; g[3] = vg[u].w;
+            }
+          }
+        }
+      }
+    }
+  } else {
+    const int tot = rows * cc;
+    const float rc = 1.0f / cc;
+    for (int e0 = tid; e0 < tot; e0 += kLoads * nt) {
+      float vb[kLoads], vg[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int e = e0 + u * nt;
+        if (e < tot) {
+          const int i = (int)((e + 0.5f) * rc), kk = e - i * cc;
+          if (i < nb) vb[u] = Bsrc[i * C + k0 + kk];
+          if (i < ng) vg[u] = Gsrc[i * C + k0 + kk];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int e = e0 + u * nt;
+        if (e < tot) {
+          const int i = (int)((e + 0.5f) * rc), kk = e - i * cc;
+          if (i < nb) Bc[i * ldc + kk] = vb[u];
+          if (i < ng) Gc[i * ldc + kk] = vg[u];
+        }
+      }
+    }
+  }
+}
+
+// The chunk's landmarks (cc columns, 3 a landmark) that each of P poses
+// observes: those whose columns hold an entry that is not exactly 0 (a
+// NaN counts) in the pose's rows (6 a pose, none past `rows`) of X or,
+// where Y is given, of Y.  A warp per (pose, 32 landmarks), lane =
+// landmark, one ballot: sets32[2 p] and sets32[2 p + 1] are the low and
+// high word of pose p's set (one 64-bit set, little-endian).
+__device__ inline void chunk_observers(const float* X, const float* Y,
+                                       int ldc, int rows, int cc, int P,
+                                       unsigned* sets32, int warp, int nw,
+                                       int lane) {
+  for (int task = warp; task < 2 * P; task += nw) {
+    const int p = task >> 1, l = 32 * (task & 1) + lane;
+    bool obs = false;
+#pragma unroll
+    for (int rr = 0; rr < 6; ++rr) {  // unrolled: all of a lane's loads at once
+      const int r = 6 * p + rr;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const int kk = 3 * l + c;
+        if (r < rows && kk < cc) {
+          obs |= X[r * ldc + kk] != 0.0f;
+          if (Y != nullptr) obs |= Y[r * ldc + kk] != 0.0f;
+        }
+      }
+    }
+    const unsigned bits = __ballot_sync(popup::kFull, obs);
+    if (lane == 0) sets32[task] = bits;
   }
 }
 
@@ -117,78 +263,12 @@ schur_small_kernel(const float* __restrict__ Hpp, const float* __restrict__ B,
                    (((uintptr_t)B | (uintptr_t)G) & 15) == 0;
   for (int k0 = 0; k0 < C; k0 += 3 * cl) {
     const int cc = min(3 * cl, C - k0);  // columns of this chunk
-    const int lc = (cc + 2) / 3;         // its landmarks
     if (k0 > 0) __syncthreads();         // the previous chunk is consumed
-    // 1. stage the chunk's columns of B and G: a thread issues all its
-    // loads (up to 2 kStage, 16 bytes each where rows allow) before it
-    // stores any, so the staging costs about one round trip to memory
-    if (vec && ((cc | k0) & 3) == 0) {
-      const int qr = cc >> 2, nq = n * qr;
-      for (int e0 = tid; e0 < nq; e0 += kStage * nt) {
-        float4 vb[kStage], vg[kStage];
-#pragma unroll
-        for (int u = 0; u < kStage; ++u) {
-          const int e = e0 + u * nt;
-          if (e < nq) {
-            const int i = e / qr, kk = 4 * (e - i * qr);
-            vb[u] = *reinterpret_cast<const float4*>(B + i * C + k0 + kk);
-            vg[u] = *reinterpret_cast<const float4*>(G + i * C + k0 + kk);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kStage; ++u) {
-          const int e = e0 + u * nt;
-          if (e < nq) {
-            const int i = e / qr, kk = 4 * (e - i * qr);
-            float* b = Bc + i * ldc + kk;
-            float* g = Gc + i * ldc + kk;
-            b[0] = vb[u].x; b[1] = vb[u].y; b[2] = vb[u].z; b[3] = vb[u].w;
-            g[0] = vg[u].x; g[1] = vg[u].y; g[2] = vg[u].z; g[3] = vg[u].w;
-          }
-        }
-      }
-    } else {
-      const int tot = n * cc;
-      for (int e0 = tid; e0 < tot; e0 += kStage * nt) {
-        float vb[kStage], vg[kStage];
-#pragma unroll
-        for (int u = 0; u < kStage; ++u) {
-          const int e = e0 + u * nt;
-          if (e < tot) {
-            const int i = e / cc, kk = e - i * cc;
-            vb[u] = B[i * C + k0 + kk];
-            vg[u] = G[i * C + k0 + kk];
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kStage; ++u) {
-          const int e = e0 + u * nt;
-          if (e < tot) {
-            const int i = e / cc, kk = e - i * cc;
-            Bc[i * ldc + kk] = vb[u];
-            Gc[i * ldc + kk] = vg[u];
-          }
-        }
-      }
-    }
+    // 1. stage the chunk's columns of B and G, then per pose the chunk's
+    // landmarks it observes in B or G
+    stage_chunk<kStage>(Bc, Gc, ldc, B, G, C, k0, cc, n, n, vec, tid, nt);
     __syncthreads();
-    // per pose, the chunk's landmarks it observes: a warp per (pose, 32
-    // landmarks), lane = landmark, one ballot
-    for (int task = warp; task < 2 * P; task += nw) {
-      const int p = task >> 1, l = 32 * (task & 1) + lane;
-      bool obs = false;
-      if (l < lc) {
-        for (int r = 6 * p; r < min(6 * p + 6, n); ++r)
-#pragma unroll
-          for (int c = 0; c < 3; ++c) {
-            const int kk = 3 * l + c;
-            if (kk < cc)
-              obs |= (Bc[r * ldc + kk] != 0.0f) | (Gc[r * ldc + kk] != 0.0f);
-          }
-      }
-      const unsigned bits = __ballot_sync(popup::kFull, obs);
-      if (lane == 0) lmset32[task] = bits;  // little-endian: low word first
-    }
+    chunk_observers(Bc, Gc, ldc, n, cc, P, lmset32, warp, nw, lane);
     __syncthreads();
     if (k0 == 0) stamp(stamps, 1);
     // 2. S += B G^T over the landmarks both poses observe, in order
@@ -245,26 +325,81 @@ schur_small_kernel(const float* __restrict__ Hpp, const float* __restrict__ B,
   stamp(stamps, 4);
 }
 
-__global__ void schur_gemm_kernel(const float* __restrict__ Hpp,
-                                  const float* __restrict__ B,
-                                  const float* __restrict__ G,
-                                  float* __restrict__ S, int n, int C) {
-  __shared__ float Bs[kTile][kTile + 1];
-  __shared__ float Gs[kTile][kTile + 1];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int row = blockIdx.y * kTile + ty;   // row of S (and of B)
-  const int col = blockIdx.x * kTile + tx;   // column of S
-  const int grow = blockIdx.x * kTile + ty;  // row of G this thread loads
+// kStamps: the instance that writes the stamps (block (0, 0)); the other
+// carries no trace of them (their barriers and branches slowed every
+// launch)
+template <bool kStamps>
+__global__ void __launch_bounds__(kGemmThreads)
+schur_gemm_kernel(const float* __restrict__ Hpp, const float* __restrict__ B,
+                  const float* __restrict__ G, float* __restrict__ S, int n,
+                  int C, unsigned long long* stamps) {
+  if (!kStamps || blockIdx.x != 0 || blockIdx.y != 0) stamps = nullptr;
+  stamp(stamps, 0);
+  __shared__ __align__(16) float Bc[kGemmRows * kGemmLd];  // row poses' B
+  __shared__ __align__(16) float Gc[kGemmRows * kGemmLd];  // column poses' G
+  // landmark sets of the row poses, then of the column poses
+  __shared__ unsigned long long sets[2 * kGemmPoses];
+  unsigned* sets32 = reinterpret_cast<unsigned*>(sets);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = kGemmThreads >> 5;
+  const int r0 = blockIdx.y * kGemmRows, c0 = blockIdx.x * kGemmRows;
+  const int nb = min(kGemmRows, n - r0), ng = min(kGemmRows, n - c0);
+  // thread -> (row pose a, column pose b, row, column): 36 threads a pose
+  // pair, so a warp spans at most two pairs' landmark loops
+  const int pair = tid / 36, e = tid - 36 * pair;
+  const int a = pair / kGemmPoses, b = pair - a * kGemmPoses;
+  const int i = 6 * a + e / 6, j = 6 * b + e % 6;
+  const bool mine = pair < kGemmPoses * kGemmPoses && i < nb && j < ng;
+  const bool vec = (C & 3) == 0 &&
+                   (((uintptr_t)B | (uintptr_t)G) & 15) == 0;
   float acc = 0.0f;
-  for (int k0 = 0; k0 < C; k0 += kTile) {
-    const int k = k0 + tx;
-    Bs[ty][tx] = (row < n && k < C) ? B[row * C + k] : 0.0f;
-    Gs[ty][tx] = (grow < n && k < C) ? G[grow * C + k] : 0.0f;
+  for (int k0 = 0; k0 < C; k0 += 3 * kMaxChunkL) {
+    const int cc = min(3 * kMaxChunkL, C - k0);
+    if (k0 > 0) __syncthreads();  // the previous chunk is consumed
+    stage_chunk<kGemmLoads>(Bc, Gc, kGemmLd, B + r0 * C, G + c0 * C, C, k0,
+                            cc, nb, ng, vec, tid, kGemmThreads);
     __syncthreads();
-    for (int kk = 0; kk < kTile; ++kk) acc = fmaf(Bs[ty][kk], Gs[tx][kk], acc);
+    if (k0 == 0) stamp(stamps, 1);
+    chunk_observers(Bc, nullptr, kGemmLd, nb, cc, kGemmPoses, sets32, warp,
+                    nw, lane);
+    chunk_observers(Gc, nullptr, kGemmLd, ng, cc, kGemmPoses,
+                    sets32 + 2 * kGemmPoses, warp, nw, lane);
     __syncthreads();
+    if (k0 == 0) stamp(stamps, 2);
+    if (mine) {
+      const float* x = Bc + i * kGemmLd;
+      const float* g = Gc + j * kGemmLd;
+      unsigned long long both = sets[a] & sets[kGemmPoses + b];
+      while (both) {  // two landmarks a round: their loads issue together
+        const int l0 = __ffsll((long long)both) - 1;
+        both &= both - 1;
+        const int l1 = both ? __ffsll((long long)both) - 1 : -1;
+        if (both) both &= both - 1;
+        float x0[3], g0[3], x1[3], g1[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const int k_0 = 3 * l0 + c, k_1 = 3 * l1 + c;
+          if (k_0 < cc) { x0[c] = x[k_0]; g0[c] = g[k_0]; }
+          if (l1 >= 0 && k_1 < cc) { x1[c] = x[k_1]; g1[c] = g[k_1]; }
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          if (3 * l0 + c < cc) acc = fmaf(x0[c], g0[c], acc);
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          if (l1 >= 0 && 3 * l1 + c < cc) acc = fmaf(x1[c], g1[c], acc);
+      }
+    }
   }
-  if (row < n && col < n) S[row * n + col] = Hpp[row * n + col] - acc;
+  if (kStamps) {
+    __syncthreads();
+    stamp(stamps, 3);
+  }
+  if (mine) S[(r0 + i) * n + c0 + j] = Hpp[(r0 + i) * n + c0 + j] - acc;
+  if (kStamps) {
+    __syncthreads();
+    stamp(stamps, 4);
+  }
 }
 
 }  // namespace
@@ -287,10 +422,16 @@ extern "C" int popup_schur_reduce_small(const float* Hpp, const float* B,
 
 extern "C" int popup_schur_gemm(const float* Hpp, const float* B,
                                 const float* G, float* S, int n, int C,
-                                void* stream) {
-  const dim3 block(kTile, kTile);
-  const dim3 grid((n + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-  schur_gemm_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(Hpp, B, G, S, n,
-                                                              C);
+                                unsigned long long* stamps, void* stream) {
+  if (n <= 0) return 0;
+  const int tiles = (n + kGemmRows - 1) / kGemmRows;
+  if (stamps != nullptr)
+    schur_gemm_kernel<true><<<dim3(tiles, tiles), kGemmThreads, 0,
+                              (cudaStream_t)stream>>>(Hpp, B, G, S, n, C,
+                                                      stamps);
+  else
+    schur_gemm_kernel<false><<<dim3(tiles, tiles), kGemmThreads, 0,
+                               (cudaStream_t)stream>>>(Hpp, B, G, S, n, C,
+                                                       nullptr);
   return (int)cudaGetLastError();
 }

@@ -29,7 +29,7 @@ from .._device import const
 from ..factors.graph import Factors, Window
 from ..factors.robust import RobustConfig
 from ..geometry import se3
-from ._build import check, library
+from ._build import check, check_stamps, library
 
 MAX_SMEM = 232448   # bytes of shared memory one H100 block may use
 _KINDS = {"none": 0, "huber": 1, "cauchy": 2}
@@ -206,11 +206,7 @@ def fused_gn_solve(window: Window, factors: Factors, iters: int = 2,
     else:
         static_ptr = None
 
-    if stamps is not None and (stamps.device != dev
-                               or stamps.dtype != torch.int64
-                               or stamps.shape != (n_stamps(iters),)):
-        raise ValueError("fused_gn_solve: stamps must be int64 "
-                         f"({n_stamps(iters)},) on {dev}")
+    check_stamps("fused_gn_solve", stamps, dev, n_stamps(iters))
     f32 = torch.float32
     R_out = torch.empty((W, 3, 3), dtype=f32, device=dev)
     t_out = torch.empty((W, 3), dtype=f32, device=dev)

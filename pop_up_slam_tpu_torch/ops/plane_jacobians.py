@@ -7,12 +7,13 @@ linearizes with) and is the plain version of :func:`plane_terms`, whose
 CUDA kernel (``csrc/plane_terms.cu`` over ``csrc/plane_factor.cuh``, the
 routine the fused GN kernel shares) replaces the reference's Pallas
 kernel ``plane_terms_pallas`` (``plane_jacobians.py:315``, kernel
-``_plane_kernel``).  One thread per factor gathers its pose and landmark
-by index and writes r, Jp and Jl in place; the Pallas wrapper's
-42-channel lane packing is not carried over.  At F = 72 factors (~530
-operations and ~180 bytes each) the kernel is bound by its launch, not by
-bytes or operations; the design is one launch with no host-side
-preparation.
+``_plane_kernel``).  Each block stages the window and its 32 factors'
+rows in shared memory in one wave of loads, one thread per factor runs
+the closed form there, and the block writes r, Jp and Jl as contiguous
+runs of one output buffer; the Pallas wrapper's 42-channel lane packing
+is not carried over.  At F = 72 factors (~530 operations and ~180 bytes
+each) the kernel is bound by latency (its launch, one round trip, the
+closed form's dependent chain), not by bytes or operations.
 
 With pose retraction ``T' = T_wc e^xi`` the camera-frame plane linearizes
 as n_c(phi) = n_c0 + hat(n_c0) phi, d_c(rho) = d_c0 + n_c0 . rho; with
@@ -26,7 +27,10 @@ import torch
 
 from ..geometry import plane as plane_mod
 from ..geometry import se3
-from ._build import check, library
+from ._build import check, check_inputs, check_stamps, library
+
+# K5's phase stamps: start, loads staged, closed form, stores issued
+N_STAMPS = 4
 
 
 def plane_terms_analytic(window, factors):
@@ -100,10 +104,17 @@ def plane_terms_analytic(window, factors):
             torch.where(v[..., None], Jl, zero))
 
 
-def plane_terms(window, factors):
+def _int32(x: torch.Tensor) -> torch.Tensor:
+    return x if x.dtype == torch.int32 else x.to(torch.int32)
+
+
+def plane_terms(window, factors, stamps=None):
     """(r (F,3), Jp (F,3,6), Jl (F,3,3)) of every plane factor, whitened,
-    zero where invalid.  CUDA tensors launch K5; CPU tensors run
-    :func:`plane_terms_analytic`."""
+    zero where invalid: three contiguous views of one buffer.  CUDA
+    tensors launch K5; CPU tensors run :func:`plane_terms_analytic`.
+    ``stamps``, an int64 CUDA tensor of ``N_STAMPS`` slots, receives the
+    kernel's ``%globaltimer`` at its phase boundaries (ns; for the
+    profile script)."""
     dev = window.t.device
     if dev.type == "cpu":
         return plane_terms_analytic(window, factors)
@@ -111,33 +122,32 @@ def plane_terms(window, factors):
         raise ValueError(f"plane_terms: unsupported device {dev}")
     W, L = window.window_size, window.max_landmarks
     F = factors.valid.shape[0]
-    f32 = torch.float32
-    ins = [
-        (window.R, (W, 3, 3), f32), (window.t, (W, 3), f32),
-        (window.planes, (L, 4), f32),
-        (factors.pose_idx.to(torch.int32), (F,), torch.int32),
-        (factors.lm_idx.to(torch.int32), (F,), torch.int32),
-        (factors.pi_meas, (F, 4), f32),
-        (factors.sqrt_info, (F, 3, 3), f32), (factors.valid, (F,), torch.bool),
-    ]
-    for x, shape, dtype in ins:
-        if x.device != dev:
-            raise ValueError("plane_terms: all inputs must lie on one device")
-        if tuple(x.shape) != shape or x.dtype != dtype:
-            raise ValueError(f"plane_terms: got {tuple(x.shape)} {x.dtype}, "
-                             f"want {shape} {dtype}")
-    ins = [x.contiguous() for x, _, _ in ins]
-    r = torch.empty((F, 3), dtype=f32, device=dev)
-    Jp = torch.empty((F, 3, 6), dtype=f32, device=dev)
-    Jl = torch.empty((F, 3, 3), dtype=f32, device=dev)
+    i32 = torch.int32
+    # one sqrt-info matrix broadcast over the factors (the SLAM step's) is
+    # read as one matrix, not copied out F times
+    A = factors.sqrt_info
+    a_stride = 0 if A.stride() == (0, 3, 1) and F > 0 else 9
+    ins = ((window.R, (W, 3, 3)), (window.t, (W, 3)), (window.planes, (L, 4)),
+           (_int32(factors.pose_idx), (F,), i32),
+           (_int32(factors.lm_idx), (F,), i32),
+           (factors.pi_meas, (F, 4)),
+           (A[:1] if a_stride == 0 else A, (1 if a_stride == 0 else F, 3, 3)),
+           (factors.valid, (F,), torch.bool))
+    check_inputs("plane_terms", dev, *ins)
+    check_stamps("plane_terms", stamps, dev, N_STAMPS)
+    out = torch.empty(30 * F, dtype=torch.float32, device=dev)
+    r = out[:3 * F].view(F, 3)
+    Jp = out[3 * F:21 * F].view(F, 3, 6)
+    Jl = out[21 * F:].view(F, 3, 3)
     if F == 0:
         return r, Jp, Jl
     lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     plane_terms.launches += 1
     check(lib.popup_plane_terms(
-        *(x.data_ptr() for x in ins), r.data_ptr(), Jp.data_ptr(),
-        Jl.data_ptr(), F, W, L, stream), "plane_terms")
+        *(spec[0].data_ptr() for spec in ins), out.data_ptr(), F, W, L,
+        a_stride, stamps.data_ptr() if stamps is not None else None, stream),
+        "plane_terms")
     return r, Jp, Jl
 
 

@@ -19,8 +19,10 @@ The route keeps the reference's split (``schur_pallas.py:154``):
   dense sum's order, so S keeps the dense ordered sum's bits.  Bound by
   latency; lambda is read from device memory, so LM and dog-leg
   iterations never wait on the host.
-- 6W > 128: **K3b** :func:`schur_gemm`, a tiled f32 GEMM on the CUDA
-  cores, then damping and mask as PyTorch ops and **K4**
+- 6W > 128: **K3b** :func:`schur_gemm`, the product alone over tiles of
+  whole poses, each entry summed only over the landmarks both poses
+  observe in the dense order (f32 on the CUDA cores, the dense sum's
+  bits), then damping and mask as PyTorch ops and **K4**
   :func:`..cholesky.chol_solve` (one block's shared memory up to
   n = 224, a device-memory workspace above).
 
@@ -35,13 +37,16 @@ from __future__ import annotations
 import torch
 
 from ..solver.schur import SchurSolution, inv3x3
-from ._build import check, library
+from ._build import check, check_inputs, check_stamps, library
 from .cholesky import chol_solve, chol_solve_plain
 
 MAX_SMALL_N = 128   # the reference's single-tile route: 6W <= 128
 # K3a's phase stamps: start, observer sets built, product, damping and
 # mask, Cholesky solve
 N_SMALL_STAMPS = 5
+# K3b's phase stamps (block (0, 0)): start, first chunk staged, its
+# observer sets built, product, S stored
+N_GEMM_STAMPS = 5
 
 
 def damp_mask(S: torch.Tensor, lam: torch.Tensor,
@@ -66,41 +71,29 @@ def schur_reduce_small_plain(Hpp, B, G, rhs, pm, lam):
     return S, chol_solve_plain(S, rhs * pm)
 
 
-def _check(name: str, dev, *specs):
-    f32 = torch.float32
-    for x, shape in specs:
-        # one test per tensor on the launch path (host time), the reason
-        # only on failure
-        if (x.dtype == f32 and x.shape == shape and x.is_contiguous()
-                and x.device == dev):
-            continue
-        if x.device != dev:
-            raise ValueError(f"{name}: all inputs must lie on {dev}")
-        if tuple(x.shape) != tuple(shape):
-            raise ValueError(f"{name}: shape {tuple(x.shape)}, want "
-                             f"{tuple(shape)}")
-        if x.dtype != f32:
-            raise ValueError(f"{name}: float32 only")
-        raise ValueError(f"{name}: inputs must be contiguous")
-
-
-def schur_gemm(Hpp: torch.Tensor, B: torch.Tensor,
-               G: torch.Tensor) -> torch.Tensor:
+def schur_gemm(Hpp: torch.Tensor, B: torch.Tensor, G: torch.Tensor,
+               stamps=None) -> torch.Tensor:
     """K3b: S = Hpp - B G^T with Hpp (n, n), B and G (n, C) f32.  CUDA
-    tensors launch the kernel; CPU tensors run the plain version."""
+    tensors launch the kernel; CPU tensors run the plain version.
+    ``stamps``, an int64 CUDA tensor of ``N_GEMM_STAMPS`` slots, receives
+    the kernel's ``%globaltimer`` at its phase boundaries (ns; for the
+    profile script)."""
     dev = B.device
     if dev.type == "cpu":
         return schur_gemm_plain(Hpp, B, G)
     if dev.type != "cuda":
         raise ValueError(f"schur_gemm: unsupported device {dev}")
     n, C = B.shape
-    _check("schur_gemm", dev, (Hpp, (n, n)), (B, (n, C)), (G, (n, C)))
+    check_inputs("schur_gemm", dev, (Hpp, (n, n)), (B, (n, C)), (G, (n, C)))
+    check_stamps("schur_gemm", stamps, dev, N_GEMM_STAMPS)
     S = torch.empty((n, n), dtype=torch.float32, device=dev)
     lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     schur_gemm.launches += 1
-    check(lib.popup_schur_gemm(Hpp.data_ptr(), B.data_ptr(), G.data_ptr(),
-                               S.data_ptr(), n, C, stream), "schur_gemm")
+    check(lib.popup_schur_gemm(
+        Hpp.data_ptr(), B.data_ptr(), G.data_ptr(), S.data_ptr(), n, C,
+        stamps.data_ptr() if stamps is not None else None, stream),
+        "schur_gemm")
     return S
 
 
@@ -120,16 +113,12 @@ def schur_reduce_small(Hpp, B, G, rhs, pm, lam, stamps=None):
     if dev.type != "cuda":
         raise ValueError(f"schur_reduce_small: unsupported device {dev}")
     n, C = B.shape
-    _check("schur_reduce_small", dev, (Hpp, (n, n)), (B, (n, C)),
+    check_inputs("schur_reduce_small", dev, (Hpp, (n, n)), (B, (n, C)),
            (G, (n, C)), (rhs, (n,)), (pm, (n,)), (lam, ()))
     if not 1 <= n <= MAX_SMALL_N:
         raise ValueError(f"schur_reduce_small: n={n} outside "
                          f"1..{MAX_SMALL_N}")
-    if stamps is not None and (stamps.device != dev
-                               or stamps.dtype != torch.int64
-                               or stamps.shape != (N_SMALL_STAMPS,)):
-        raise ValueError("schur_reduce_small: stamps must be int64 "
-                         f"({N_SMALL_STAMPS},) on {dev}")
+    check_stamps("schur_reduce_small", stamps, dev, N_SMALL_STAMPS)
     S = torch.empty((n, n), dtype=torch.float32, device=dev)
     x = torch.empty((n,), dtype=torch.float32, device=dev)
     lib = library()

@@ -21,15 +21,23 @@ or ``dogleg`` it is not, as in ``chip_smoke.py``:
 4. the kernel section (``--kernels-only`` runs it alone): K1's phase
    split on the chip-smoke state (24 frames in, window full, marginal
    on), from the kernel's ``%globaltimer`` stamps averaged over
-   ``--launches`` launches; K1's and K4's CUDA-event time per launch;
-   K3a's phase split (observer sets, product, damping and mask,
-   Cholesky) from its stamps on that state's LM system (lambda 1e-5),
-   its CUDA-event and device time; K2's CUDA-event and device time per
-   launch on the 480x640 frames 0, 40, 80, 120; and K4
-   (``--chol-n``, default 48,144,384) beside the library calls
-   ``torch.linalg.cholesky`` + ``cholesky_solve`` and ``cholesky_ex`` +
-   ``cholesky_solve``, each time the mean of 200 calls, and the device
-   time of each of K4's kernels per call.
+   ``--launches`` launches; K1's CUDA-event time per launch; K3a's phase
+   split (observer sets, product, damping and mask, Cholesky) from its
+   stamps on that state's LM system (lambda 1e-5), its CUDA-event and
+   device time; K2's CUDA-event and device time per launch on the
+   480x640 frames 0, 40, 80, 120; K5's phase split (loads, compute,
+   stores) from its stamps on that state's 72 plane factors; then the
+   library section: the launch floor (the device time of a 1-element
+   ``add_``), K3b's phase split (its stamps on block (0, 0): staging,
+   observer sets, product, store), K3b beside
+   ``torch.addmm(Hpp, B, G.T, alpha=-1)`` and K5 on
+   ``chip_smoke.random_system`` at W=24 and W=40 (L=64), and K4
+   (``--chol-n``, default 48,144,384) beside ``torch.linalg.cholesky`` +
+   ``cholesky_solve`` and ``cholesky_ex`` + ``cholesky_solve``.  Every
+   call there gets its device time (the profiler's kernels per call,
+   summed, copies and memsets left out), each kernel's share, and its
+   CUDA-event time (the mean of ``--launches`` back-to-back calls, which
+   is host-bound for calls this small).
 
 Prints one JSON object per line; the card's ``nvidia-smi`` name and
 power limit come first.
@@ -90,10 +98,11 @@ def _event_ms(torch, fn, n: int) -> float:
     return e0.elapsed_time(e1) / n
 
 
-def kernel_section(args, torch, z, masks) -> None:
-    """K1's phase split and K4 against the library calls (see above)."""
+def kernel_section(args, torch, z, masks, gpu: str) -> None:
+    """The kernels' phase splits and device times, and the library
+    section (see above)."""
     from pop_up_slam_tpu_torch.geometry.camera import Intrinsics
-    from pop_up_slam_tpu_torch.ops import cholesky, fused_gn
+    from pop_up_slam_tpu_torch.ops import fused_gn
     from pop_up_slam_tpu_torch.pipeline import (
         SlamConfig, run_sequence_chunked, slam_init,
     )
@@ -128,40 +137,15 @@ def kernel_section(args, torch, z, masks) -> None:
     k1_split(torch, fused_gn, w0, factors, kw, n_l, scfg)
     k3a_split(torch, st, factors, scfg, n_l)
     k2_device(torch, z, masks, n_l)
-
-    rng = np.random.default_rng(0)
-    for n in (int(v) for v in args.chol_n.split(",") if v):
-        A = rng.normal(size=(n, n)).astype(np.float32)
-        S = torch.as_tensor(A @ A.T + n * np.eye(n, dtype=np.float32),
-                            device="cuda")
-        b = torch.as_tensor(rng.normal(size=n).astype(np.float32),
-                            device="cuda")
-        row = {"n": n}
-        row["chol_solve_ms"] = _event_ms(
-            torch, lambda: cholesky.chol_solve(S, b), 200)
-        row["cholesky_cholesky_solve_ms"] = _event_ms(
-            torch, lambda: torch.cholesky_solve(
-                b[:, None], torch.linalg.cholesky(S)), 200)
-        row["cholesky_ex_cholesky_solve_ms"] = _event_ms(
-            torch, lambda: torch.cholesky_solve(
-                b[:, None], torch.linalg.cholesky_ex(S)[0]), 200)
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                cholesky.chol_solve(S, b)
-            torch.cuda.synchronize()
-        ks = {}
-        for e in _device_events(prof):
-            if "chol" in e.name:
-                ks.setdefault(e.name[:40], []).append(
-                    e.time_range.end - e.time_range.start)
-        row["device_us_per_call_by_kernel"] = {
-            k: float(np.sum(v)) / 20 for k, v in ks.items()}
-        print(json.dumps(row))
+    k5_split(torch, w0, factors.planes, n_l, gpu)
+    library_section(torch, [int(v) for v in args.chol_n.split(",") if v],
+                    n_l, gpu)
 
 
-def _device_us(torch, fn, n: int, name: str) -> float:
-    """Mean device time (us) of the kernels named ``name`` per call."""
+def _kernels_us(torch, fn, n: int) -> dict:
+    """Device time (us) per call of each kernel that ``fn`` launches, by
+    name, from the profiler over ``n`` calls (copies and memsets left
+    out)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -170,8 +154,105 @@ def _device_us(torch, fn, n: int, name: str) -> float:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return float(sum(e.time_range.end - e.time_range.start
-                     for e in _device_events(prof) if name in e.name)) / n
+    out = {}
+    for e in _device_events(prof):
+        if e.name.startswith(("Memcpy", "Memset")):
+            continue
+        out[e.name] = out.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / n
+    return out
+
+
+def _device_us(torch, fn, n: int, name: str) -> float:
+    """Mean device time (us) per call of the kernels whose name holds
+    ``name`` ("" for all)."""
+    return float(sum(v for k, v in _kernels_us(torch, fn, n).items()
+                     if name in k))
+
+
+def _call_row(torch, what: str, fn, n_l: int, gpu: str, **shape) -> dict:
+    """One call's device time (all its kernels, summed), each kernel's
+    share and its CUDA-event time."""
+    by_kernel = _kernels_us(torch, fn, 50)
+    return {"call": what, **shape, "device_us": float(sum(by_kernel.values())),
+            "device_us_by_kernel": {k[:60]: v for k, v in by_kernel.items()},
+            "event_ms": _event_ms(torch, fn, n_l), "card": gpu}
+
+
+def library_section(torch, chol_ns, n_l: int, gpu: str) -> None:
+    """The launch floor; K3b's phase split (stamps of block (0, 0)), K3b
+    against ``addmm`` and K5 on random systems at W=24 and W=40; K4
+    against the two Cholesky library routes."""
+    from chip_smoke import random_system
+    from pop_up_slam_tpu_torch.factors import graph
+    from pop_up_slam_tpu_torch.ops import cholesky, schur
+    from pop_up_slam_tpu_torch.ops import plane_jacobians as pj
+
+    x = torch.zeros(1, device="cuda")
+    print(json.dumps(_call_row(torch, "launch floor: 1-element add_",
+                               lambda: x.add_(1.0), n_l, gpu)))
+    for W, L, F in ((24, 64, 216), (40, 64, 240)):
+        window, factors = random_system(torch, W, L, F, 11, "cuda")
+        lin = graph.linearize(window, factors, analytic_planes=True)
+        lam = torch.full((), 1e-3, device="cuda")
+        _, B, G, Hpp, _, _ = schur.reduce_operands(lin, window, lam)
+        n, C = B.shape
+        stamps = torch.zeros((n_l, schur.N_GEMM_STAMPS), dtype=torch.int64,
+                             device="cuda")
+        for r in range(n_l):
+            schur.schur_gemm(Hpp, B, G, stamps=stamps[r])
+        torch.cuda.synchronize()
+        d = stamps.diff(dim=1).double().mean(0).cpu().numpy() / 1e3
+        print(json.dumps({"W": W, "L": L, "k3b_phase_us_block_0_0": dict(
+            zip(K3B_PHASES, map(float, d))), "k3b_stamped_total_us":
+            float(d.sum()), "card": gpu}))
+        for what, fn in (
+                ("K3b schur_gemm", lambda: schur.schur_gemm(Hpp, B, G)),
+                ("addmm(Hpp, B, G.T, alpha=-1)",
+                 lambda: torch.addmm(Hpp, B, G.T, alpha=-1)),
+                ("K5 plane_terms",
+                 lambda: pj.plane_terms(window, factors.planes))):
+            print(json.dumps(_call_row(torch, what, fn, n_l, gpu, W=W, L=L,
+                                       n=n, C=C, F=F)))
+    rng = np.random.default_rng(0)
+    for n in chol_ns:
+        A = rng.normal(size=(n, n)).astype(np.float32)
+        S = torch.as_tensor(A @ A.T + n * np.eye(n, dtype=np.float32),
+                            device="cuda")
+        b = torch.as_tensor(rng.normal(size=n).astype(np.float32),
+                            device="cuda")
+        for what, fn in (
+                ("K4 chol_solve", lambda: cholesky.chol_solve(S, b)),
+                ("cholesky + cholesky_solve", lambda: torch.cholesky_solve(
+                    b[:, None], torch.linalg.cholesky(S))),
+                ("cholesky_ex + cholesky_solve",
+                 lambda: torch.cholesky_solve(
+                     b[:, None], torch.linalg.cholesky_ex(S)[0]))):
+            print(json.dumps(_call_row(torch, what, fn, n_l, gpu, n=n)))
+
+
+K5_PHASES = ("loads", "compute", "stores")
+K3B_PHASES = ("stage", "observer_sets", "product", "store")
+
+
+def k5_split(torch, window, pf, n_l, gpu: str) -> None:
+    """K5's phase split (stamps), CUDA-event and device time on the
+    state's plane factors."""
+    from pop_up_slam_tpu_torch.ops import plane_jacobians as pj
+
+    stamps = torch.zeros((n_l, pj.N_STAMPS), dtype=torch.int64,
+                         device="cuda")
+    pj.plane_terms(window, pf)
+    for r in range(n_l):
+        pj.plane_terms(window, pf, stamps=stamps[r])
+    torch.cuda.synchronize()
+    d = stamps.diff(dim=1).double().mean(0).cpu().numpy() / 1e3
+    row = _call_row(torch, "K5 plane_terms",
+                    lambda: pj.plane_terms(window, pf), n_l, gpu,
+                    F=int(pf.valid.shape[0]))
+    row.update(k5_phase_us=dict(zip(K5_PHASES, map(float, d))),
+               k5_stamped_total_us=float(d.sum()))
+    print(json.dumps(row))
 
 
 K3A_PHASES = ("observer_sets", "product", "damp_mask", "cholesky")
@@ -284,9 +365,10 @@ def main() -> int:
     )
     from pop_up_slam_tpu_torch.popup import popup as pp
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
+                         text=True, check=True).stdout.strip()
+    print(gpu)
     _build.library()
 
     z = np.load(os.path.join(REPO, "bench_data", "corridor_inputs.npz"))
@@ -301,7 +383,7 @@ def main() -> int:
     depth = args.solver == "gn"
     K = Intrinsics.create(320.0, 320.0, 320.0, 240.0, device="cuda")
     if args.kernels_only:
-        kernel_section(args, torch, z, masks)
+        kernel_section(args, torch, z, masks, gpu)
         return 0
     print(json.dumps({"solver": args.solver, "window_size": args.window,
                       "depth": depth}))
@@ -405,7 +487,7 @@ def main() -> int:
     print(json.dumps({"sync_sites_per_frame": sorted(
         [[k, c / 4] for k, c in sites.items()], key=lambda x: -x[1])}))
 
-    kernel_section(args, torch, z, masks)
+    kernel_section(args, torch, z, masks, gpu)
     return 0
 
 

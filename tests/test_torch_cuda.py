@@ -237,26 +237,83 @@ def _window_factors(w, f, dev):
             convert.factors_from_numpy(f, dev))
 
 
-@pytest.mark.parametrize("shape", [(8, 64, 72), (6, 10, 37)])
+@pytest.mark.parametrize("shape", [(8, 64, 72), (6, 10, 37), (8, 64, 300)])
 def test_plane_terms_kernel_matches_plain(cuda_device, shape):
-    """The chip-smoke shapes (W, L, F), random problems with invalid
-    factors (the reference kernel test's problem: on a 10 m corridor at
-    1/0.02 whitening the distance residual cancels in f32 far above
-    1e-5 in either version)."""
+    """The chip-smoke shapes (W, L, F) and F = 300 (ten blocks of 32
+    factors, a ragged last one), random problems with invalid factors (the
+    reference kernel test's problem: on a 10 m corridor at 1/0.02
+    whitening the distance residual cancels in f32 far above 1e-5 in
+    either version).  F = 300 repeats the 72-factor problem: a fresh draw
+    of 300 factors puts three residuals of factors on a far plane 8e-5
+    apart, in this kernel and in the one-thread-a-factor kernel before it
+    alike (f32 cancellation in either version).  Factors 3-5 and 250-252
+    are valid but index outside the window: the kernel writes zeros there
+    too, which the plain version (that cannot index out of range) gets as
+    invalid factors."""
     W, L, F = shape
-    w, pf = random_problem(3, W, L, F)
+    w, pf = random_problem(3, W, L, min(F, 72))
     pf["valid"][:3] = False
+    pf = {k: np.resize(v, (F,) + v.shape[1:]) for k, v in pf.items()}
     window = convert.window_from_numpy(w, cuda_device)
-    pf = graph.PlaneFactors(*(torch.as_tensor(pf[k], device=cuda_device)
-                              for k in graph.PlaneFactors._fields))
+    pf_out = {k: v.copy() for k, v in pf.items()}
+    for f0 in (3, 250) if F > 250 else (3,):
+        pf_out["valid"][f0:f0 + 3] = True
+        pf_out["pose_idx"][f0], pf_out["pose_idx"][f0 + 1] = W, -1
+        pf_out["lm_idx"][f0 + 2] = L
+        pf["valid"][f0:f0 + 3] = False
+
+    def factors(d):
+        return graph.PlaneFactors(*(torch.as_tensor(d[k], device=cuda_device)
+                                    for k in graph.PlaneFactors._fields))
+    pf, pf_out = factors(pf), factors(pf_out)
     before = plane_jacobians.plane_terms.launches
-    out_k = plane_jacobians.plane_terms(window, pf)
+    out_k = plane_jacobians.plane_terms(window, pf_out)
     assert plane_jacobians.plane_terms.launches == before + 1
     out_p = plane_jacobians.plane_terms_analytic(window, pf)
     torch.cuda.synchronize()
     for a, b, what in zip(out_k, out_p, ("r", "Jp", "Jl")):
+        assert a.is_contiguous() and a.shape == b.shape, what
         assert_close(a, b, 1e-5, rtol=1e-5, what=what)
         assert not a[~pf.valid].any(), what
+
+
+def _plane_state(dev):
+    w, pf = random_problem(3, 8, 64, 72)
+    pf["valid"][:3] = False
+    return (convert.window_from_numpy(w, dev),
+            graph.PlaneFactors(*(torch.as_tensor(pf[k], device=dev)
+                                 for k in graph.PlaneFactors._fields)))
+
+
+def test_plane_terms_kernel_is_deterministic(cuda_device):
+    """Two K5 launches agree bit for bit."""
+    window, pf = _plane_state(cuda_device)
+    a = plane_jacobians.plane_terms(window, pf)
+    b = plane_jacobians.plane_terms(window, pf)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_plane_terms_kernel_broadcast_sqrt_info(cuda_device):
+    """One sqrt-info matrix broadcast over the factors (the SLAM step's
+    layout, read as one matrix) gives the bits of its contiguous copy."""
+    window, pf = _plane_state(cuda_device)
+    A = pf.sqrt_info[0].expand(pf.valid.shape[0], 3, 3)
+    a = plane_jacobians.plane_terms(window, pf._replace(sqrt_info=A))
+    b = plane_jacobians.plane_terms(
+        window, pf._replace(sqrt_info=A.contiguous()))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_plane_terms_stamps(cuda_device):
+    """K5's optional phase stamps: four non-decreasing device times, and
+    the outputs are those of an unstamped launch."""
+    window, pf = _plane_state(cuda_device)
+    st = torch.zeros(plane_jacobians.N_STAMPS, dtype=torch.int64,
+                     device=cuda_device)
+    a = plane_jacobians.plane_terms(window, pf, stamps=st)
+    b = plane_jacobians.plane_terms(window, pf)
+    assert bool((st > 0).all()) and bool((st.diff() >= 0).all())
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 # K3a at the paths' W=8, L=64, at the route's widest n = 126 (W=21, L=100,
@@ -318,6 +375,77 @@ def test_make_solve_fn_auto_at_w40(cuda_device):
                  rtol=1e-3, what="auto")
 
 
+def _gemm_operands(dev, W, L, F, edit=None):
+    window, factors = _window_factors(*random_system(11, W, L, F), dev)
+    if edit is not None:
+        factors = factors._replace(planes=edit(factors.planes))
+    lin = graph.linearize(window, factors, analytic_planes=True)
+    _, B, G, Hpp, _, _ = schur.reduce_operands(
+        lin, window, torch.full((), 1e-3, device=dev))
+    return Hpp, B, G
+
+
+# K3b alone: an odd L (W=23, L=9: 3L = 27 columns, no 16-byte staging),
+# lm24's W=24, L=64, W=40 (n = 240, a ragged last tile) and past one
+# 64-landmark chunk (L=100)
+@pytest.mark.parametrize("shape", [(23, 9, 40), (24, 64, 216),
+                                   (40, 64, 240), (24, 100, 216)])
+def test_schur_gemm_kernel_matches_plain(cuda_device, shape):
+    Hpp, B, G = _gemm_operands(cuda_device, *shape)
+    before = schur.schur_gemm.launches
+    S = schur.schur_gemm(Hpp, B, G)
+    assert schur.schur_gemm.launches == before + 1
+    S2 = schur.schur_gemm(Hpp, B, G)
+    torch.cuda.synchronize()
+    assert torch.equal(S, S2), "two launches differ"
+    assert torch.isfinite(S).all()
+    assert_close(S, schur.schur_gemm_plain(Hpp, B, G), 5e-3, rtol=1e-3,
+                 what="S")
+
+
+def test_schur_gemm_kernel_skips_unobserved_landmarks(cuda_device):
+    """W=24, L=64 with landmark 3 observed by no pose and landmark 4 by
+    pose 2 alone: the product skips the landmarks a pose pair does not
+    share."""
+    def edit(pf):
+        pose, lm, valid = pf.pose_idx.clone(), pf.lm_idx.clone(), \
+            pf.valid.clone()
+        pose[0], lm[0] = 2, 4
+        valid[lm == 3] = False
+        valid[(lm == 4) & (pose != 2)] = False
+        valid[0] = True
+        return pf._replace(pose_idx=pose, lm_idx=lm, valid=valid)
+    Hpp, B, G = _gemm_operands(cuda_device, 24, 64, 216, edit)
+    obs = G.reshape(24, 6, 64, 3).abs().sum(dim=(1, 3)) > 0   # (W, L)
+    assert not obs[:, 3].any() and obs[:, 4].nonzero().flatten().tolist() \
+        == [2]
+    S = schur.schur_gemm(Hpp, B, G)
+    torch.cuda.synchronize()
+    assert_close(S, schur.schur_gemm_plain(Hpp, B, G), 5e-3, rtol=1e-3,
+                 what="S")
+
+
+def test_schur_gemm_kernel_nan_in_B_reaches_S(cuda_device):
+    """A NaN in B counts as observed: it reaches every entry of its row
+    whose column pose observes that landmark; the rest of S is unchanged
+    (the terms a pose pair does not share are skipped, not multiplied by
+    zero)."""
+    Hpp, B, G = _gemm_operands(cuda_device, 24, 64, 216)
+    obs = G.reshape(24, 6, 64, 3).abs().sum(dim=(1, 3)) > 0   # (W, L)
+    lm = int(obs[5].nonzero()[0])
+    i, k = 6 * 5 + 1, 3 * lm + 2
+    Bn = B.clone()
+    Bn[i, k] = float("nan")
+    S0 = schur.schur_gemm(Hpp, B, G)
+    S = schur.schur_gemm(Hpp, Bn, G)
+    torch.cuda.synchronize()
+    cols = obs[:, lm].repeat_interleave(6)
+    rows = torch.arange(S.shape[0], device=cuda_device) != i
+    assert torch.isnan(S[i, cols]).all()
+    assert torch.isfinite(S[i, ~cols]).all()
+    assert torch.equal(S[rows], S0[rows])
+
+
 def test_schur_reduce_small_is_deterministic(cuda_device):
     """No atomics: two K3a launches agree bit for bit."""
     window, factors = _window_factors(*random_system(5, 8, 64, 72),
@@ -331,12 +459,15 @@ def test_schur_reduce_small_is_deterministic(cuda_device):
 
 
 def _k3a_vs_k3b_operands(case, dev):
-    if case == "dense":  # every term non-zero: no landmark is skipped
+    if case in ("dense", "ragged"):  # every term non-zero: none skipped
+        # ragged: n = 100 (a partial pose, a ragged K3b tile), C = 50 (not
+        # whole landmarks, no 16-byte staging)
+        n, C = (48, 192) if case == "dense" else (100, 50)
         rng = np.random.default_rng(7)
         Hpp, B, G, rhs = (torch.as_tensor(
             rng.normal(size=sh).astype(np.float32), device=dev)
-            for sh in ((48, 48), (48, 192), (48, 192), (48,)))
-        return Hpp, B, G, rhs, torch.ones(48, device=dev)
+            for sh in ((n, n), (n, C), (n, C), (n,)))
+        return Hpp, B, G, rhs, torch.ones(n, device=dev)
     W, L, F = (8, 64, 72) if case == "random_W8" else (21, 100, 200)
     window, factors = _window_factors(*random_system(11, W, L, F), dev)
     window = window._replace(pose_fixed=torch.zeros_like(window.pose_fixed))
@@ -346,7 +477,8 @@ def _k3a_vs_k3b_operands(case, dev):
     return Hpp, B, G, -rp, pm
 
 
-@pytest.mark.parametrize("case", ["random_W8", "random_W21", "dense"])
+@pytest.mark.parametrize("case", ["random_W8", "random_W21", "dense",
+                                  "ragged"])
 def test_schur_small_S_equals_schur_gemm(cuda_device, case):
     """At lambda = 0 with every pose free K3a's S is K3b's bit for bit (-0
     taken as +0): both sum each entry over k in ascending order with fmaf
@@ -358,6 +490,18 @@ def test_schur_small_S_equals_schur_gemm(cuda_device, case):
                                       torch.zeros((), device=cuda_device))
     S_b = schur.schur_gemm(Hpp, B, G)
     assert torch.equal(S_a + 0.0, S_b + 0.0)
+
+
+def test_schur_gemm_stamps(cuda_device):
+    """K3b's optional phase stamps: five non-decreasing device times, and
+    S is that of an unstamped launch."""
+    Hpp, B, G = _gemm_operands(cuda_device, 24, 64, 216)
+    st = torch.zeros(schur.N_GEMM_STAMPS, dtype=torch.int64,
+                     device=cuda_device)
+    a = schur.schur_gemm(Hpp, B, G, stamps=st)
+    b = schur.schur_gemm(Hpp, B, G)
+    assert bool((st > 0).all()) and bool((st.diff() >= 0).all())
+    assert torch.equal(a, b)
 
 
 def test_schur_small_stamps(cuda_device):

@@ -10,6 +10,7 @@ CUDA kernels against their plain versions are in test_torch_cuda.py.
 - K2 depth render: plain vs ``depth_from_popup`` and
   ``depth_render_pallas(interpret=True)`` on a 120x160 frame, rtol 1e-4 /
   atol 1e-3 (as the reference's own kernel test).
+- The kernel wrappers' shared input gate, on CPU tensors.
 """
 
 import jax
@@ -93,3 +94,27 @@ def test_depth_render_plain_matches_reference():
                                 jnp.asarray(t), interpret=True)
     assert_close(d_t, d_ref, 1e-3, rtol=1e-4, what="vs depth_from_popup")
     assert_close(d_t, d_pal, 1e-3, rtol=1e-4, what="vs pallas")
+
+
+# ---------------------------------------------------------------- wrappers
+
+@pytest.mark.parametrize("case", ["ok", "device", "shape", "dtype",
+                                  "contiguity"])
+def test_check_inputs(case):
+    """The kernel wrappers' input gate (``ops/_build.py::check_inputs``):
+    each tensor on the device, of its shape and dtype (float32 unless
+    given) and contiguous, else a ValueError that names the fault."""
+    from pop_up_slam_tpu_torch.ops._build import check_inputs
+
+    x = torch.zeros(4, 3)
+    idx = torch.zeros(4, dtype=torch.int32)
+    specs = {"ok": (x, (4, 3)), "device": (x.to("meta"), (4, 3)),
+             "shape": (x, (3, 4)), "dtype": (x.double(), (4, 3)),
+             "contiguity": (x.t(), (3, 4))}
+    want = {"device": "lie on", "shape": "shape", "dtype": "want",
+            "contiguity": "contiguous"}
+    if case == "ok":
+        check_inputs("k", CPU, specs["ok"], (idx, (4,), torch.int32))
+        return
+    with pytest.raises(ValueError, match=want[case]):
+        check_inputs("k", CPU, (idx, (4,), torch.int32), specs[case])
