@@ -244,13 +244,16 @@ def k2_ops(H: int, W: int, n_walls: int) -> float:
 
 def k5_work(window, pf):
     """(bytes, operations) of one K5 launch: the window and each factor's
-    inputs read once, r/Jp/Jl written once; operations per valid factor
-    with both indices in range (``_PLANE_TERMS``)."""
+    inputs read once (a sqrt-info broadcast over the factors, which the
+    wrapper passes as one matrix, once), r/Jp/Jl written once; operations
+    per valid factor with both indices in range (``_PLANE_TERMS``)."""
     W, L = window.window_size, window.max_landmarks
     F = pf.valid.shape[0]
     p, l = pf.pose_idx.cpu().numpy(), pf.lm_idx.cpu().numpy()
     ok = pf.valid.cpu().numpy() & (p >= 0) & (p < W) & (l >= 0) & (l < L)
-    nbytes = 4 * (12 * W + 4 * L) + F * (4 + 4 + 16 + 36 + 1) + F * 4 * 30
+    a_bytes = 36 if pf.sqrt_info.stride() == (0, 3, 1) else 36 * F
+    nbytes = (4 * (12 * W + 4 * L) + F * (4 + 4 + 16 + 1) + a_bytes
+              + F * 4 * 30)
     return nbytes, int(ok.sum()) * _PLANE_TERMS
 
 

@@ -41,7 +41,7 @@ _SIGNATURES = {
     + [_I, _F, _I, _F, _I, _F] + [_P] * 8,
     "popup_plane_terms": [_P] * 9 + [_I] * 4 + [_P, _P],
     "popup_schur_reduce_small": [_P] * 8 + [_I, _I, _P, _P],
-    "popup_schur_gemm": [_P] * 4 + [_I, _I, _P, _P],
+    "popup_schur_gemm": [_P] * 4 + [_I, _I, _P],
 }
 
 _lib = None

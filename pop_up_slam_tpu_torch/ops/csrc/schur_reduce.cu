@@ -59,8 +59,7 @@
 //      sign of a zero), the tiled GEMM's, and equals K3a's S at
 //      lambda = 0.
 // Nothing is summed with atomics; plain f32 on the CUDA cores (not TF32:
-// the port keeps full-f32 numerics).  Optional %globaltimer stamps on
-// block (0, 0) (a diagonal tile: the longest landmark loops) split it.
+// the port keeps full-f32 numerics).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,10 +81,8 @@ constexpr int kGemmLoads = 4;
 // reads of a column across its 6 rows hit distinct banks)
 constexpr int kGemmLd = 3 * kMaxChunkL + 4;
 
-// Thread 0 writes %globaltimer (ns) into slot i of the optional stamps (5
-// slots; K3a: start, observer sets built, product, damping and mask,
-// solve; K3b, block (0, 0) only: start, first chunk staged, its sets
-// built, product, S stored).
+// Thread 0 writes %globaltimer (ns) into slot i of K3a's optional stamps
+// (5 slots: start, observer sets built, product, damping and mask, solve).
 __device__ inline void stamp(unsigned long long* stamps, int i) {
   if (stamps != nullptr && threadIdx.x == 0) {
     unsigned long long t;
@@ -325,16 +322,10 @@ schur_small_kernel(const float* __restrict__ Hpp, const float* __restrict__ B,
   stamp(stamps, 4);
 }
 
-// kStamps: the instance that writes the stamps (block (0, 0)); the other
-// carries no trace of them (their barriers and branches slowed every
-// launch)
-template <bool kStamps>
 __global__ void __launch_bounds__(kGemmThreads)
 schur_gemm_kernel(const float* __restrict__ Hpp, const float* __restrict__ B,
                   const float* __restrict__ G, float* __restrict__ S, int n,
-                  int C, unsigned long long* stamps) {
-  if (!kStamps || blockIdx.x != 0 || blockIdx.y != 0) stamps = nullptr;
-  stamp(stamps, 0);
+                  int C) {
   __shared__ __align__(16) float Bc[kGemmRows * kGemmLd];  // row poses' B
   __shared__ __align__(16) float Gc[kGemmRows * kGemmLd];  // column poses' G
   // landmark sets of the row poses, then of the column poses
@@ -359,13 +350,11 @@ schur_gemm_kernel(const float* __restrict__ Hpp, const float* __restrict__ B,
     stage_chunk<kGemmLoads>(Bc, Gc, kGemmLd, B + r0 * C, G + c0 * C, C, k0,
                             cc, nb, ng, vec, tid, kGemmThreads);
     __syncthreads();
-    if (k0 == 0) stamp(stamps, 1);
     chunk_observers(Bc, nullptr, kGemmLd, nb, cc, kGemmPoses, sets32, warp,
                     nw, lane);
     chunk_observers(Gc, nullptr, kGemmLd, ng, cc, kGemmPoses,
                     sets32 + 2 * kGemmPoses, warp, nw, lane);
     __syncthreads();
-    if (k0 == 0) stamp(stamps, 2);
     if (mine) {
       const float* x = Bc + i * kGemmLd;
       const float* g = Gc + j * kGemmLd;
@@ -391,15 +380,7 @@ schur_gemm_kernel(const float* __restrict__ Hpp, const float* __restrict__ B,
       }
     }
   }
-  if (kStamps) {
-    __syncthreads();
-    stamp(stamps, 3);
-  }
   if (mine) S[(r0 + i) * n + c0 + j] = Hpp[(r0 + i) * n + c0 + j] - acc;
-  if (kStamps) {
-    __syncthreads();
-    stamp(stamps, 4);
-  }
 }
 
 }  // namespace
@@ -422,16 +403,10 @@ extern "C" int popup_schur_reduce_small(const float* Hpp, const float* B,
 
 extern "C" int popup_schur_gemm(const float* Hpp, const float* B,
                                 const float* G, float* S, int n, int C,
-                                unsigned long long* stamps, void* stream) {
+                                void* stream) {
   if (n <= 0) return 0;
   const int tiles = (n + kGemmRows - 1) / kGemmRows;
-  if (stamps != nullptr)
-    schur_gemm_kernel<true><<<dim3(tiles, tiles), kGemmThreads, 0,
-                              (cudaStream_t)stream>>>(Hpp, B, G, S, n, C,
-                                                      stamps);
-  else
-    schur_gemm_kernel<false><<<dim3(tiles, tiles), kGemmThreads, 0,
-                               (cudaStream_t)stream>>>(Hpp, B, G, S, n, C,
-                                                       nullptr);
+  schur_gemm_kernel<<<dim3(tiles, tiles), kGemmThreads, 0,
+                      (cudaStream_t)stream>>>(Hpp, B, G, S, n, C);
   return (int)cudaGetLastError();
 }

@@ -44,9 +44,6 @@ MAX_SMALL_N = 128   # the reference's single-tile route: 6W <= 128
 # K3a's phase stamps: start, observer sets built, product, damping and
 # mask, Cholesky solve
 N_SMALL_STAMPS = 5
-# K3b's phase stamps (block (0, 0)): start, first chunk staged, its
-# observer sets built, product, S stored
-N_GEMM_STAMPS = 5
 
 
 def damp_mask(S: torch.Tensor, lam: torch.Tensor,
@@ -71,13 +68,10 @@ def schur_reduce_small_plain(Hpp, B, G, rhs, pm, lam):
     return S, chol_solve_plain(S, rhs * pm)
 
 
-def schur_gemm(Hpp: torch.Tensor, B: torch.Tensor, G: torch.Tensor,
-               stamps=None) -> torch.Tensor:
+def schur_gemm(Hpp: torch.Tensor, B: torch.Tensor,
+               G: torch.Tensor) -> torch.Tensor:
     """K3b: S = Hpp - B G^T with Hpp (n, n), B and G (n, C) f32.  CUDA
-    tensors launch the kernel; CPU tensors run the plain version.
-    ``stamps``, an int64 CUDA tensor of ``N_GEMM_STAMPS`` slots, receives
-    the kernel's ``%globaltimer`` at its phase boundaries (ns; for the
-    profile script)."""
+    tensors launch the kernel; CPU tensors run the plain version."""
     dev = B.device
     if dev.type == "cpu":
         return schur_gemm_plain(Hpp, B, G)
@@ -85,15 +79,13 @@ def schur_gemm(Hpp: torch.Tensor, B: torch.Tensor, G: torch.Tensor,
         raise ValueError(f"schur_gemm: unsupported device {dev}")
     n, C = B.shape
     check_inputs("schur_gemm", dev, (Hpp, (n, n)), (B, (n, C)), (G, (n, C)))
-    check_stamps("schur_gemm", stamps, dev, N_GEMM_STAMPS)
     S = torch.empty((n, n), dtype=torch.float32, device=dev)
     lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     schur_gemm.launches += 1
     check(lib.popup_schur_gemm(
         Hpp.data_ptr(), B.data_ptr(), G.data_ptr(), S.data_ptr(), n, C,
-        stamps.data_ptr() if stamps is not None else None, stream),
-        "schur_gemm")
+        stream), "schur_gemm")
     return S
 
 

@@ -28,15 +28,14 @@ or ``dogleg`` it is not, as in ``chip_smoke.py``:
    480x640 frames 0, 40, 80, 120; K5's phase split (loads, compute,
    stores) from its stamps on that state's 72 plane factors; then the
    library section: the launch floor (the device time of a 1-element
-   ``add_``), K3b's phase split (its stamps on block (0, 0): staging,
-   observer sets, product, store), K3b beside
+   ``add_``), K3b beside
    ``torch.addmm(Hpp, B, G.T, alpha=-1)`` and K5 on
    ``chip_smoke.random_system`` at W=24 and W=40 (L=64), and K4
    (``--chol-n``, default 48,144,384) beside ``torch.linalg.cholesky`` +
    ``cholesky_solve`` and ``cholesky_ex`` + ``cholesky_solve``.  Every
-   call there gets its device time (the profiler's kernels per call,
-   summed, copies and memsets left out), each kernel's share, and its
-   CUDA-event time (the mean of ``--launches`` back-to-back calls, which
+   call there gets its device time (every device activity of the call,
+   kernels, copies and memsets, summed per call by the profiler), each
+   activity's share, and its CUDA-event time (the mean of ``--launches`` back-to-back calls, which
    is host-bound for calls this small).
 
 Prints one JSON object per line; the card's ``nvidia-smi`` name and
@@ -143,9 +142,9 @@ def kernel_section(args, torch, z, masks, gpu: str) -> None:
 
 
 def _kernels_us(torch, fn, n: int) -> dict:
-    """Device time (us) per call of each kernel that ``fn`` launches, by
-    name, from the profiler over ``n`` calls (copies and memsets left
-    out)."""
+    """Device time (us) per call of each device activity of ``fn``
+    (kernels, copies, memsets), by name, from the profiler over ``n``
+    calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -156,8 +155,6 @@ def _kernels_us(torch, fn, n: int) -> dict:
         torch.cuda.synchronize()
     out = {}
     for e in _device_events(prof):
-        if e.name.startswith(("Memcpy", "Memset")):
-            continue
         out[e.name] = out.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start) / n
     return out
@@ -171,8 +168,8 @@ def _device_us(torch, fn, n: int, name: str) -> float:
 
 
 def _call_row(torch, what: str, fn, n_l: int, gpu: str, **shape) -> dict:
-    """One call's device time (all its kernels, summed), each kernel's
-    share and its CUDA-event time."""
+    """One call's device time (all its device activities, summed), each
+    activity's share and its CUDA-event time."""
     by_kernel = _kernels_us(torch, fn, 50)
     return {"call": what, **shape, "device_us": float(sum(by_kernel.values())),
             "device_us_by_kernel": {k[:60]: v for k, v in by_kernel.items()},
@@ -180,8 +177,7 @@ def _call_row(torch, what: str, fn, n_l: int, gpu: str, **shape) -> dict:
 
 
 def library_section(torch, chol_ns, n_l: int, gpu: str) -> None:
-    """The launch floor; K3b's phase split (stamps of block (0, 0)), K3b
-    against ``addmm`` and K5 on random systems at W=24 and W=40; K4
+    """The launch floor; K3b against ``addmm`` and K5 on random systems at W=24 and W=40; K4
     against the two Cholesky library routes."""
     from chip_smoke import random_system
     from pop_up_slam_tpu_torch.factors import graph
@@ -197,15 +193,6 @@ def library_section(torch, chol_ns, n_l: int, gpu: str) -> None:
         lam = torch.full((), 1e-3, device="cuda")
         _, B, G, Hpp, _, _ = schur.reduce_operands(lin, window, lam)
         n, C = B.shape
-        stamps = torch.zeros((n_l, schur.N_GEMM_STAMPS), dtype=torch.int64,
-                             device="cuda")
-        for r in range(n_l):
-            schur.schur_gemm(Hpp, B, G, stamps=stamps[r])
-        torch.cuda.synchronize()
-        d = stamps.diff(dim=1).double().mean(0).cpu().numpy() / 1e3
-        print(json.dumps({"W": W, "L": L, "k3b_phase_us_block_0_0": dict(
-            zip(K3B_PHASES, map(float, d))), "k3b_stamped_total_us":
-            float(d.sum()), "card": gpu}))
         for what, fn in (
                 ("K3b schur_gemm", lambda: schur.schur_gemm(Hpp, B, G)),
                 ("addmm(Hpp, B, G.T, alpha=-1)",
@@ -232,7 +219,6 @@ def library_section(torch, chol_ns, n_l: int, gpu: str) -> None:
 
 
 K5_PHASES = ("loads", "compute", "stores")
-K3B_PHASES = ("stage", "observer_sets", "product", "store")
 
 
 def k5_split(torch, window, pf, n_l, gpu: str) -> None:

@@ -239,41 +239,51 @@ def _window_factors(w, f, dev):
 
 @pytest.mark.parametrize("shape", [(8, 64, 72), (6, 10, 37), (8, 64, 300)])
 def test_plane_terms_kernel_matches_plain(cuda_device, shape):
-    """The chip-smoke shapes (W, L, F) and F = 300 (ten blocks of 32
-    factors, a ragged last one), random problems with invalid factors (the
-    reference kernel test's problem: on a 10 m corridor at 1/0.02
-    whitening the distance residual cancels in f32 far above 1e-5 in
-    either version).  F = 300 repeats the 72-factor problem: a fresh draw
-    of 300 factors puts three residuals of factors on a far plane 8e-5
-    apart, in this kernel and in the one-thread-a-factor kernel before it
-    alike (f32 cancellation in either version).  Factors 3-5 and 250-252
-    are valid but index outside the window: the kernel writes zeros there
-    too, which the plain version (that cannot index out of range) gets as
-    invalid factors."""
+    """The chip-smoke shapes (W, L, F) and F = 300, random problems with
+    invalid factors (the reference kernel test's problem), plus three
+    extra rows that are valid but index outside the window (pose W, pose
+    -1, landmark L): the kernel writes zeros there, which the plain
+    version (that cannot index out of range) gets as invalid rows.  So
+    the kernel runs F + 3 factors: 40, 75 and 303, ragged last blocks of
+    32.  The residual rows of factors whose measured normal lies within
+    2.6 degrees of an axis (1 - max |n_k| < 1e-3) are left out: the
+    tangent basis (the reference's Householder reflector) divides by
+    1 - |n_k|, so the f32 rounding of the normal there exceeds the
+    tolerance in any order (the kernel, the plain version on either
+    device and the f64 closed form part by up to 8e-5).  F = 300 has
+    three such factors, F = 72 and 37 none; no more than 1 % of the
+    factors may be left out, and their Jacobians are held."""
     W, L, F = shape
-    w, pf = random_problem(3, W, L, min(F, 72))
+    tol = 1e-5
+    w, pf = random_problem(3, W, L, F)
     pf["valid"][:3] = False
-    pf = {k: np.resize(v, (F,) + v.shape[1:]) for k, v in pf.items()}
-    window = convert.window_from_numpy(w, cuda_device)
+    pf = {k: np.concatenate([v, v[3:6]]) for k, v in pf.items()}
+    pf["valid"][F:] = False
     pf_out = {k: v.copy() for k, v in pf.items()}
-    for f0 in (3, 250) if F > 250 else (3,):
-        pf_out["valid"][f0:f0 + 3] = True
-        pf_out["pose_idx"][f0], pf_out["pose_idx"][f0 + 1] = W, -1
-        pf_out["lm_idx"][f0 + 2] = L
-        pf["valid"][f0:f0 + 3] = False
+    pf_out["pose_idx"][F:F + 2] = W, -1
+    pf_out["lm_idx"][F + 2] = L
+    pf_out["valid"][F:] = True
+    n_m = pf["pi_meas"][:, :3].astype(np.float64)
+    n_m /= np.linalg.norm(n_m, axis=1, keepdims=True)
+    near_axis = pf["valid"] & (1.0 - np.abs(n_m).max(1) < 1e-3)
+    assert near_axis.sum() <= 0.01 * (F + 3)
 
     def factors(d):
         return graph.PlaneFactors(*(torch.as_tensor(d[k], device=cuda_device)
                                     for k in graph.PlaneFactors._fields))
+    window = convert.window_from_numpy(w, cuda_device)
     pf, pf_out = factors(pf), factors(pf_out)
     before = plane_jacobians.plane_terms.launches
     out_k = plane_jacobians.plane_terms(window, pf_out)
     assert plane_jacobians.plane_terms.launches == before + 1
     out_p = plane_jacobians.plane_terms_analytic(window, pf)
     torch.cuda.synchronize()
+    held = torch.as_tensor(~near_axis, device=cuda_device)
     for a, b, what in zip(out_k, out_p, ("r", "Jp", "Jl")):
         assert a.is_contiguous() and a.shape == b.shape, what
-        assert_close(a, b, 1e-5, rtol=1e-5, what=what)
+        assert torch.isfinite(a).all(), what
+        rows = held if what == "r" else slice(None)
+        assert_close(a[rows], b[rows], tol, rtol=tol, what=what)
         assert not a[~pf.valid].any(), what
 
 
@@ -490,18 +500,6 @@ def test_schur_small_S_equals_schur_gemm(cuda_device, case):
                                       torch.zeros((), device=cuda_device))
     S_b = schur.schur_gemm(Hpp, B, G)
     assert torch.equal(S_a + 0.0, S_b + 0.0)
-
-
-def test_schur_gemm_stamps(cuda_device):
-    """K3b's optional phase stamps: five non-decreasing device times, and
-    S is that of an unstamped launch."""
-    Hpp, B, G = _gemm_operands(cuda_device, 24, 64, 216)
-    st = torch.zeros(schur.N_GEMM_STAMPS, dtype=torch.int64,
-                     device=cuda_device)
-    a = schur.schur_gemm(Hpp, B, G, stamps=st)
-    b = schur.schur_gemm(Hpp, B, G)
-    assert bool((st > 0).all()) and bool((st.diff() >= 0).all())
-    assert torch.equal(a, b)
 
 
 def test_schur_small_stamps(cuda_device):
