@@ -21,7 +21,9 @@
    ``%globaltimer`` stamps; K5 (plane Jacobians) on that state's 72
    factors and a random F=37 set with invalid factors (the sha256 of its
    outputs on both, two launches bit-identical, its in-kernel time from
-   its stamps); K3a (Schur
+   its stamps; the count of factors whose measured normal lies within
+   2.6 degrees of an axis, whose residual rows are held against the f64
+   closed form at 1e-5 / (1 - max|n_k|), capped at 5e-3); K3a (Schur
    reduction + solve) on that state's linearization, on a system with a
    gauge-fixed pose, invalid landmarks and an indefinite direction, and
    on random systems at W=21, L=100 (n = 126), W=8, L=80 and W=5, L=9;
@@ -30,27 +32,49 @@
    sha256 of its (S, x) on a seeded random system; its in-kernel time
    from its stamps; K3b (sparse Schur product, then K4) at W=23, L=9,
    W=24, L=64 and W=40, L=64, two launches bit-identical, the sha256 of
-   its S at L=64.  One JSON line per case.
+   its S at L=64; K2 also at ``max_depth=40`` (the fused monocular
+   path's clip) on the four 480x640 frames; the per-factor ``jacfwd``
+   linearization (``analytic_planes=False, analytic_poses=False``)
+   against the closed form on the mid-sequence state and a random
+   system (its gradients against the f64 closed form).  One JSON line
+   per case.
+   Then the pop-up on the card from the pose the reference gave its own
+   pop-up on each main-path frame (``popup_R`` / ``popup_t``): per frame,
+   whether ``valid`` and ``n_points`` equal the reference's (held on all
+   144, at the end).
 3. Drives the main path: ``run_sequence_chunked`` over all 144 frames of
    ``bench_data/corridor_inputs.npz`` at 480x640 with the production
    ``SlamConfig`` (every frame a keyframe, chunks of 16), rendering each
    frame's depth as the reference ``entry()`` does.  Kernel launch counters
-   are zeroed just before and read just after; the trajectory is held
-   over all 144 frames against the committed JAX reference
-   ``pop_up_slam_tpu_torch/data/corridor_ref.npz`` (which also records
-   the reference's pop-up walls: where the run's first differ is
-   reported, not held).
+   are zeroed just before and read just after; the run is held against
+   the committed JAX reference ``pop_up_slam_tpu_torch/data/
+   corridor_ref.npz`` as ``run_path`` says: the free run up to its first
+   pop-up branch, and every one of the 144 frames again from the
+   reference's own state before it (``anchor.*`` in the file).
 4. Drives the solver paths the same way, each against its committed JAX
    run in ``corridor_ref_solvers.npz``: ``solver="lm"`` and
    ``solver="dogleg"`` over the 144 frames at the production widths (K3a
    and K5 twice per keyframe), and ``solver="lm"`` with ``window_size=24``
    over the first 48 frames (6W = 144: K3b, K4 and K5 twice per keyframe).
-   Each is held over ``frames_held`` (the frames before its pop-up first
-   finds another set of valid walls than the reference's), its accept
-   decisions over ``accept_frames_held`` (before its valid walls or
-   their column counts first differ; at least 8 keyframes); prints how
-   many decisions differ from the reference's.
-5. Prints the ``{"kernels": [...]}`` line (one row per kernel; K4's row
+   Each is held as ``run_path`` says: the free run over ``frames_held``
+   (the frames before its pop-up first finds another set of valid walls
+   than the reference's), its accept decisions before the pop-up's
+   column counts first differ; and the anchored run (each frame from
+   the reference's state) on every frame, its accept decisions on every
+   frame whose pop-up equals the reference's (no decision may differ
+   except at an f32 tie).  Every path's keyframe decisions are held
+   frame by frame in both runs.
+5. Drives the monocular paths over the 144 masks alone, against
+   ``corridor_ref_vo.npz``: ``vo`` (``make_chunked_vo_runner``: pop-up,
+   plane-VO odometry, K1) and ``fused_vo`` (``make_chunked_fused_vo_runner``:
+   also K2 at ``max_depth=40`` and the inverse-depth filter), each once
+   free from ``slam_init`` through ``run_masks_chunked`` with the launch
+   counters zeroed (K1 once a keyframe of the run, at least 90 % of the
+   frames, each frame's keyframe decision the reference's up to a tie;
+   on ``fused_vo`` K2 once a frame; no other kernel; the trajectory
+   error per frame reported), and once frame by frame from the
+   reference's own state (held: see ``run_vo_path``).
+6. Prints the ``{"kernels": [...]}`` line (one row per kernel; K4's row
    is lm24's n=144, its other timed sizes, which no path launches, are
    nested under ``other_n`` with 0 launches), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -85,6 +109,16 @@ K5_TOL = 1e-5             # rtol = atol, as tests/test_ops.py plane terms
 K3A_TOL = (1e-4, 1e-4)    # (rtol, atol) on the steps, tests/test_ops.py
 K3A_S_TOL = (1e-5, 1e-4)  # (rtol, atol) on S
 K3B_TOL = (1e-3, 5e-3)    # tiled route: a 138-240-dim f32 factorization
+# jacfwd vs closed-form linearization: each output within JACFWD_TOL of
+# its largest entry.  A plane factor whose measured normal lies within
+# 2.6 degrees of an axis (1 - max|n_k| < NEAR_AXIS) has residual rows
+# good to K5_TOL / (1 - max|n_k|) only (the Householder tangent basis):
+# they are held against the f64 closed form at that tolerance, capped at
+# NEAR_AXIS_CAP (about three times the largest parting measured, 1.6e-3
+# on the H100, PERF.md), relative to 1 + |r|
+JACFWD_TOL = 1e-5
+NEAR_AXIS = 1e-3
+NEAR_AXIS_CAP = 5e-3
 
 
 def _gpu_line() -> str:
@@ -324,11 +358,41 @@ def _err(a, b, rtol, atol):
     return float(d.max()), int((d > atol + rtol * b.abs()).sum())
 
 
+def near_axis_rows(torch, pf):
+    """(near-axis mask (F,), per-factor residual-row tolerance (F,) f64):
+    min(K5_TOL / (1 - max|n_k|), NEAR_AXIS_CAP) for valid factors whose
+    measured normal lies within NEAR_AXIS of an axis, K5_TOL for the
+    others.  1 - max|n_k| is taken in f64 from the f32 measurement."""
+    n = pf.pi_meas[:, :3].double()
+    gap = 1.0 - (n / n.norm(dim=1, keepdim=True)).abs().max(dim=1).values
+    near = pf.valid & (gap < NEAR_AXIS)
+    tau = torch.where(near, (K5_TOL / gap).clamp(max=NEAR_AXIS_CAP),
+                      torch.full_like(gap, K5_TOL))
+    return near, tau
+
+
+def near_axis_rows_held(r, r64, near, tau):
+    """(max |r - r64| over the near-axis rows, rows outside tau (1 +
+    |r64|))."""
+    if not bool(near.any()):
+        return 0.0, 0
+    d = (r[near].double() - r64[near]).abs()
+    return (float(d.max()),
+            int((d > tau[near, None] * (1.0 + r64[near].abs())).sum()))
+
+
+def _double(torch, x):
+    """A NamedTuple of tensors with its floating tensors in f64."""
+    return type(x)(*(v.double() if v.is_floating_point() else v for v in x))
+
+
 def check_k5(torch, pj, window, pf, torch_dev):
     """K5 vs plane_terms_analytic on the state's 72 factors and on a
-    random F=37 set with invalid factors; the sha256 of its (r, Jp, Jl)
-    on both; two launches bit-identical; its in-kernel time from its
-    stamps on the state."""
+    random F=37 set with invalid factors, every entry at K5_TOL except
+    the residual rows of near-axis factors (``near_axis_rows``), which
+    are held against the closed form in f64 at their row tolerance; the
+    sha256 of its (r, Jp, Jl) on both; two launches bit-identical; its
+    in-kernel time from its stamps on the state."""
     rw, rf = random_system(torch, 6, 10, 37, 3, torch_dev)
     rpf = rf.planes._replace(valid=rf.planes.valid.clone())
     rpf.valid[:3] = False
@@ -337,16 +401,30 @@ def check_k5(torch, pj, window, pf, torch_dev):
         out_k = pj.plane_terms(w, f)
         out_k2 = pj.plane_terms(w, f)
         out_p = pj.plane_terms_analytic(w, f)
+        # the closed form in f64, for the residual rows of near-axis
+        # factors (held at K5_TOL / (1 - max|n_k|), not dropped)
+        r64 = pj.plane_terms_analytic(_double(torch, w), _double(torch, f))[0]
+        near, tau = near_axis_rows(torch, f)
         torch.cuda.synchronize()
         err, bad = 0.0, 0
-        for a, b in zip(out_k, out_p):
+        for i, (a, b) in enumerate(zip(out_k, out_p)):
             assert torch.isfinite(a).all(), name
-            e, n_bad = _err(a, b, K5_TOL, K5_TOL)
+            rows = ~near if i == 0 else slice(None)
+            e, n_bad = _err(a[rows], b[rows], K5_TOL, K5_TOL)
             err, bad = max(err, e), bad + n_bad
+        e_near, n_bad = near_axis_rows_held(out_k[0], r64, near, tau)
+        bad += n_bad
         zero_ok = all(not a[~f.valid].any() for a in out_k)
         same = all(torch.equal(a, b) for a, b in zip(out_k, out_k2))
         print(json.dumps({"check": "K5", "case": name,
-                          "F": int(f.valid.shape[0]), "max_abs_err": err,
+                          "F": int(f.valid.shape[0]),
+                          "valid_factors": int(f.valid.sum()),
+                          "near_axis_factors": int(near.sum()),
+                          "max_abs_err": err,
+                          "near_axis_r_max_abs_err_f64": e_near,
+                          "near_axis_r_tol_max": float(
+                              tau[near].max()) if bool(near.any()) else 0.0,
+                          "near_axis_r_tol_form": "tol (1 + |r_f64|)",
                           "entries_out_of_tol": bad, "rtol": K5_TOL,
                           "atol": K5_TOL, "invalid_rows_zero": zero_ok,
                           "two_launches_bit_identical": same,
@@ -369,6 +447,126 @@ def check_k5(torch, pj, window, pf, torch_dev):
                 kernel_ms_stamped=float((stamps[:, -1] - stamps[:, 0])
                                         .double().mean()) / 1e6)
     return worst, timing
+
+
+def check_jacfwd(torch, graph, pj, window, factors, robust, tag):
+    """The per-factor jacfwd linearization (``analytic_planes=False,
+    analytic_poses=False``) against the closed-form one (K5 in its plane
+    terms) on the card: Hpp, Hpl, Hll and the cost within JACFWD_TOL of
+    each one's largest entry.  Its plane residual rows against the closed
+    form at K5_TOL, near-axis rows against it in f64 (``near_axis_rows``,
+    as K5's), and bp,
+    bl against the f64 closed form's within the parting of each factor's
+    f32 residual and Jacobian from f64 carried into them (the gradient of
+    a near-axis factor is only as good as its residual row in f32), plus
+    JACFWD_TOL of the summed magnitudes."""
+    lin_j = graph.linearize(window, factors, analytic_planes=False,
+                            analytic_poses=False, robust=robust)
+    lin_a = graph.linearize(window, factors, analytic_planes=True,
+                            analytic_poses=True, robust=robust)
+    # the f64 closed form on the host (K5 takes f32 only)
+    lin_64 = graph.linearize(
+        _double(torch, _to(window, "cpu")),
+        type(factors)(*(_double(torch, _to(f, "cpu")) for f in factors)),
+        analytic_planes=True, analytic_poses=True, robust=robust)
+    dev = window.t.device
+    lin_64 = _to(lin_64, dev)
+    pf = factors.planes
+    w64 = _double(torch, window)
+    r, Jp, Jl = graph._plane_terms(window, pf)
+    r64 = pj.plane_terms_analytic(w64, _double(torch, pf))[0]
+    near, tau = near_axis_rows(torch, pf)
+    e_near, bad_near = near_axis_rows_held(r, r64, near, tau)
+    # the other rows against the closed form in f32, as K5's
+    r32 = pj.plane_terms_analytic(window, pf)[0]
+    e_far, bad_far = _err(r[~near], r32[~near], K5_TOL, K5_TOL)
+    # the gradient's parting from f64, factor by factor: J r - J64 r64
+    # = J (r - r64) + (J - J64) r64, so |J| |r - r64| + |J - J64| |r64|
+    # bounds it, and JACFWD_TOL (|J| |r| + |J64| |r64|) the rounding of
+    # the f32 products and sums
+    W, L = window.window_size, window.max_landmarks
+    carried = {
+        "bp": torch.zeros((W, 6), dtype=torch.float64, device=dev),
+        "bl": torch.zeros((L, 3), dtype=torch.float64, device=dev)}
+
+    def carry(b, idx, J, r32, J64, r_64):
+        J, dr = J.double(), (r32.double() - r_64).abs()
+        term = (torch.einsum("fab,fa->fb", J.abs(), dr)
+                + torch.einsum("fab,fa->fb", (J - J64).abs(), r_64.abs())
+                + JACFWD_TOL * torch.einsum("fab,fa->fb", J.abs(),
+                                            r32.double().abs())
+                + JACFWD_TOL * torch.einsum("fab,fa->fb", J64.abs(),
+                                            r_64.abs()))
+        b.index_add_(0, idx.long(), term)
+
+    _, Jp64, Jl64 = pj.plane_terms_analytic(w64, _double(torch, pf))
+    carry(carried["bp"], pf.pose_idx, Jp, r, Jp64, r64)
+    carry(carried["bl"], pf.lm_idx, Jl, r, Jl64, r64)
+    od, pr = factors.odom, factors.priors
+    r_o, Ji, Jj = graph._odom_terms(window, od)
+    r_o64, Ji64, Jj64 = graph._odom_terms_analytic(w64, _double(torch, od))
+    carry(carried["bp"], od.i, Ji, r_o, Ji64, r_o64)
+    carry(carried["bp"], od.j, Jj, r_o, Jj64, r_o64)
+    r_p, Jq = graph._prior_terms(window, pr)
+    r_p64, Jq64 = graph._prior_terms_analytic(w64, _double(torch, pr))
+    carry(carried["bp"], pr.idx, Jq, r_p, Jq64, r_p64)
+    _sync(torch)
+    out = {"check": "jacfwd linearize", "case": tag, "tol": JACFWD_TOL,
+           "near_axis_factors": int(near.sum()),
+           "r_max_abs_err": e_far,
+           "near_axis_r_max_abs_err_f64": e_near,
+           "near_axis_r_tol_max": float(tau[near].max())
+           if bool(near.any()) else 0.0}
+    ok = bad_near == 0 and bad_far == 0
+    for name, a, b, b64 in zip(lin_a._fields, lin_j, lin_a, lin_64):
+        assert torch.isfinite(a).all(), name
+        if name in carried:
+            lim = carried[name]
+            d = (a.double() - b64).abs()
+            out[f"{name}_max_abs_err_f64"] = float(d.max())
+            out[f"{name}_max_abs_f64"] = float(b64.abs().max())
+            out[f"{name}_bound_max"] = float(lim.max())
+            pos = lim > 0
+            out[f"{name}_over_bound_max"] = float(
+                (d[pos] / lim[pos]).max()) if bool(pos.any()) else 0.0
+        else:
+            lim = JACFWD_TOL * max(1.0, float(b.abs().max()))
+            d = (a - b).abs()
+            out[f"{name}_max_abs_err"] = float(d.max())
+            out[f"{name}_bound"] = lim
+        ok &= int((d > lim).sum()) == 0
+    out["pass"] = ok
+    print(json.dumps(out))
+    assert ok, f"jacfwd linearization off the closed form ({tag})"
+
+
+def check_popup_at_reference_poses(torch, pp, K, masks_d, ref):
+    """The port's pop-up on the card from the pose the reference gave
+    its own pop-up on each frame of the main path (``popup_R`` /
+    ``popup_t``): whether ``valid`` and ``n_points`` equal the
+    reference's ``popup_valid`` / ``popup_n_points``, per frame (held on
+    every frame: the boundary back-projection rounds as XLA's CPU code
+    for the reference rounds it, ``camera.backproject_to_world_plane``).
+    Equal on every frame means a run's partings come from its pose chain,
+    not from the pop-up."""
+    valid, n_pts = [], []
+    for i in range(masks_d.shape[0]):
+        R = torch.as_tensor(ref["popup_R"][i], device=masks_d.device)
+        t = torch.as_tensor(ref["popup_t"][i], device=masks_d.device)
+        res = pp.pop_up(K, masks_d[i], R, t)
+        valid.append(res.valid)
+        n_pts.append(res.n_points)
+    same_v = (_stack_np(valid) == ref["popup_valid"]).all(-1)
+    same_n = (_stack_np(n_pts) == ref["popup_n_points"]).all(-1)
+    same = same_v & same_n
+    line = {"check": "pop-up at the reference's poses",
+            "frames": int(masks_d.shape[0]),
+            "valid_equal_frames": int(same_v.sum()),
+            "n_points_equal_frames": int(same_n.sum()),
+            "frames_differ": [int(i) for i in np.nonzero(~same)[0]],
+            "pass": bool(same.all())}
+    print(json.dumps(line))
+    return line["pass"]
 
 
 def _indefinite(lin, p=2):
@@ -648,22 +846,29 @@ def check_k2(torch, pp, depth_render, K, K_120x160, masks, ref):
     worst, timing = 0.0, None
     pcfg = pp.PopupConfig()
     small = pp.PopupConfig(smooth_radius=3, nms_radius=5, min_cols=6)
-    cases = [(str(i), masks[i], K, pcfg, i) for i in (0, 40, 80, 120)]
-    cases += [("120x160 frame 60", masks[60, ::4, ::4], K_120x160, small, 60),
-              ("479x161 frame 40", masks[40, :479, :161], K, pcfg, 40)]
-    for name, m, K_, cfg, i in cases:
+    cases = [(str(i), masks[i], K, pcfg, i, 50.0) for i in (0, 40, 80, 120)]
+    cases += [("120x160 frame 60", masks[60, ::4, ::4], K_120x160, small, 60,
+               50.0),
+              ("479x161 frame 40", masks[40, :479, :161], K, pcfg, 40, 50.0)]
+    # the fused monocular path's clip (make_fused_vo_frame_fn)
+    cases += [(f"{i} max_depth=40", masks[i], K, pcfg, i, 40.0)
+              for i in (0, 40, 80, 120)]
+    for name, m, K_, cfg, i, max_depth in cases:
         mask = torch.as_tensor(np.ascontiguousarray(m), device="cuda")
         R = torch.as_tensor(ref["R"][i], device="cuda")
         t = torch.as_tensor(ref["t"][i], device="cuda")
         res = pp.pop_up(K_, mask, R, t, cfg)
-        d_k = depth_render.depth_render(K_, res, mask, R, t)
-        d_p = pp.depth_from_popup(K_, res, mask, R, t)
+        d_k = depth_render.depth_render(K_, res, mask, R, t,
+                                        max_depth=max_depth)
+        d_p = pp.depth_from_popup(K_, res, mask, R, t, max_depth=max_depth)
         torch.cuda.synchronize()
         assert d_k.shape == mask.shape and torch.isfinite(d_k).all()
         diff = (d_k - d_p).abs()
         err = float(diff.max())
         n_bad = int((diff > K2_ATOL + K2_RTOL * d_p.abs()).sum())
-        print(json.dumps({"check": "K2", "frame": name, "max_abs_err": err,
+        assert float(d_k.max()) <= max_depth
+        print(json.dumps({"check": "K2", "frame": name,
+                          "max_depth": max_depth, "max_abs_err": err,
                           "pixels_out_of_tol": n_bad,
                           "rtol": K2_RTOL, "atol": K2_ATOL,
                           "sha256": sha256_of(d_k), "pass": n_bad == 0}))
@@ -758,16 +963,22 @@ def check_k1(torch, _build, fused_gn, slam_mod, state, scfg):
 ACCEPT_TIE = 1e-4   # relative cost change below which an accept is a tie
 MIN_HELD = 0.9      # a pop-up branch must not come before 90 % of a path
 # a solver path must hold the accept decisions of at least this many
-# keyframes (the production window's length; the card's lm, dogleg and
-# lm24 runs hold 18, 18 and 11, PERF.md)
+# keyframes (the production window's length)
 ACCEPT_MIN_FRAMES = 8
+# a frame is a keyframe when its motion since the last keyframe exceeds
+# kf_trans (m) or kf_rot (rad); a keyframe decision that differs from the
+# reference's is a tie when the port's motion lies within KF_TIE of those
+# thresholds (at the production kf_trans = kf_rot = 0: a static camera,
+# whose motion is zero to rounding, PERF.md)
+KF_TIE = 1e-6
 
 
-def accept_diffs(acc, cost, ref_acc, ref_cost):
+def accept_diffs(acc, cost, ref_acc, ref_cost, held=True):
     """(decisions that differ from the reference, those that are not f32
-    ties).  A differing decision is a tie when the side that accepted
-    lowered its cost by less than ACCEPT_TIE relative (or 1e-9)."""
-    diff = acc != ref_acc
+    ties, where those are).  A differing decision is a tie when the side
+    that accepted lowered its cost by less than ACCEPT_TIE relative (or
+    1e-9).  ``held`` masks the decisions compared."""
+    diff = (acc != ref_acc) & held
     dec = np.where(acc, cost[:, :-1] - cost[:, 1:],
                    ref_cost[:, :-1] - ref_cost[:, 1:])
     base = np.where(acc, cost[:, :-1], ref_cost[:, :-1])
@@ -775,34 +986,124 @@ def accept_diffs(acc, cost, ref_acc, ref_cost):
     return int(diff.sum()), int((diff & ~tie).sum()), np.argwhere(diff & ~tie)
 
 
+def same_start(cost, ref_cost):
+    """Per decision (frames, iterations): whether every iteration up to
+    it started from the reference's cost to within ACCEPT_TIE relative
+    (or 1e-9), i.e. the two iterates have not parted yet."""
+    start, ref_start = cost[:, :-1], ref_cost[:, :-1]
+    same = np.abs(start - ref_start) <= ACCEPT_TIE * np.abs(ref_start) + 1e-9
+    return np.logical_and.accumulate(same, axis=1)
+
+
 def _first_false(ok) -> int:
     """Index of the first False in a 1-D bool array, else its length."""
     return int(np.argmin(ok)) if not ok.all() else len(ok)
 
 
-def run_path(torch, name, slam_mod, pp, run, counters, ref, gpu, scfg, n,
-             inputs, warm_frames=4, depth=False):
-    """One path through ``run_sequence_chunked``: a short warm-up, then
-    the launch counters zeroed, ``n`` frames run and the counters read.
-    Holds the trajectory and discrete state against ``ref`` (keys
-    prefixed ``name``); returns the launches.
+def logging_slam_step(offline, log):
+    """A stand-in for ``offline.slam_step`` (which both runners call) that
+    logs each frame's keyframe inputs: the accumulated motion, the
+    odometry and ``n_kf`` before and after."""
+    step = offline.slam_step
 
-    The main path's trajectory is held over all ``n`` frames.  Where the
-    reference records each frame's pop-up outcome, a solver path's
-    trajectory is held over the frames before the first frame whose set
-    of valid walls differs from the reference's (``frames_held``; past
-    it the two runs follow different wall sets, PERF.md "pop-up
-    branch"), and its accept decisions over the frames before the first
-    frame whose valid walls or their column counts differ
-    (``accept_frames_held``, at least ``ACCEPT_MIN_FRAMES``): from there
-    on the two runs solve different problems, and a decision between two
-    near-equal costs may fall either way.  Each range that ends early,
-    the frames whose pop-up differs and the error of every frame are
-    reported."""
+    def logged(state, det, odom_R, odom_t, cfg):
+        nxt, pose = step(state, det, odom_R, odom_t, cfg)
+        log.append((state.acc_R, state.acc_t, odom_R, odom_t, state.n_kf,
+                    nxt.n_kf))
+        return nxt, pose
+
+    return logged
+
+
+def keyframe_decisions(torch, se3, log, cfg):
+    """Per logged frame: (a keyframe was made, the margin of its motion
+    over the thresholds, max(|t| - kf_trans, |log R| - kf_rot), computed
+    as ``slam_step`` computes it)."""
+    kf, margin = [], []
+    for acc_R, acc_t, odom_R, odom_t, before, after in log:
+        R, t = se3.se3_compose(acc_R, acc_t, odom_R, odom_t)
+        margin.append(torch.maximum(
+            torch.linalg.norm(t) - cfg.kf_trans,
+            torch.linalg.norm(se3.so3_log(R)) - cfg.kf_rot))
+        kf.append(after > before)
+    return (torch.stack(kf).cpu().numpy(),
+            torch.stack(margin).double().cpu().numpy())
+
+
+def reference_keyframes(ref, anchor_key, end_key, n):
+    """The reference's keyframe decision on each of the first ``n``
+    frames: its ``n_kf`` after the frame (the next frame's recorded start
+    state, or the end state's) above its ``n_kf`` before."""
+    n_kf = np.append(ref[anchor_key], ref[end_key])[:n + 1]
+    return n_kf[1:] > n_kf[:-1]
+
+
+def hold_keyframes(kf, margin, ref_kf):
+    """The keyframe decisions against the reference's: those that differ,
+    each tie (``KF_TIE``) printed with its margin, and those that are not
+    ties (held empty)."""
+    diff = kf != ref_kf
+    tie = diff & (np.abs(margin) <= KF_TIE)
+    return {"keyframes": int(kf.sum()), "ref_keyframes": int(ref_kf.sum()),
+            "tie_m_rad": KF_TIE,
+            "ties": [{"frame": int(i), "keyframe": bool(kf[i]),
+                      "ref_keyframe": bool(ref_kf[i]),
+                      "margin": float(margin[i])}
+                     for i in np.nonzero(tie)[0]],
+            "differ_not_ties": [int(i) for i in np.nonzero(diff & ~tie)[0]]}
+
+
+def _stack_np(xs):
+    """A list of equal-shaped tensors as one numpy array."""
+    return np.stack([x.cpu().numpy() for x in xs])
+
+
+def _popup_same(pops, ref, key, n):
+    """Per frame: (valid walls equal the reference's, and their column
+    counts too)."""
+    valid = _stack_np([v for v, _ in pops])
+    n_pts = _stack_np([c for _, c in pops])
+    ref_valid = ref[key + "popup_valid"][:n]
+    same = (valid == ref_valid).all(-1)
+    same_pts = same & ((n_pts == ref[key + "popup_n_points"][:n])
+                       | ~ref_valid).all(-1)
+    return same, same_pts, valid, n_pts
+
+
+def run_path(torch, name, slam_mod, offline, se3, pp, run, counters, ref,
+             gpu, scfg, n, inputs, convert, warm_frames=4, depth=False):
+    """One path through ``run_sequence_chunked``, twice.  Returns the free
+    run's launches.
+
+    The free run: a short warm-up, then the launch counters zeroed, ``n``
+    frames run from ``slam_init`` and the counters read.  Its trajectory
+    is held over ``frames_held`` (the frames before the first frame whose
+    set of valid walls differs from the reference's, at least MIN_HELD of
+    the run; past it the two runs follow different wall sets, PERF.md
+    "pop-up branch"), its end state's discrete fields and every frame's
+    keyframe decision (up to a ``KF_TIE`` tie) against the reference's;
+    a solver path's accept decisions may differ from the reference's only
+    at an f32 tie (``ACCEPT_TIE``) over ``accept_frames_held`` (before
+    its valid walls or their column counts first differ).
+
+    The anchored run: every frame alone from the reference's own state
+    before it (``anchor.*``), so each frame's inputs are the reference's.
+    Each frame's pose within TRAJ_BOUND_M, each keyframe decision as
+    above, the end state's discrete fields equal; a solver path's accept
+    decisions may differ only at a tie on every frame whose pop-up equals
+    the reference's in valid walls and column counts (at least MIN_HELD
+    of the run and ACCEPT_MIN_FRAMES), each iteration's decision while
+    the iterate still starts from the reference's cost (``same_start``:
+    past that the two decide on different iterates; those that differ
+    there are reported).  Each range that ends early, the
+    frames whose pop-up differs and the error of every frame are
+    reported, and the free run's accept differences over all of
+    ``frames_held``."""
     masks_d, oR, ot, R0, t0, K, pcfg = inputs
     solver = scfg.solver
-    rec, pops = [], []
-    pop_up = pp.pop_up
+    rec, pops, kf_log = [], [], []
+    pop_up, slam_step = pp.pop_up, offline.slam_step
+    key = "" if name == "gn" else name + "_"
 
     def recording_pop_up(*args, **kwargs):
         res = pop_up(*args, **kwargs)
@@ -819,13 +1120,13 @@ def run_path(torch, name, slam_mod, pp, run, counters, ref, gpu, scfg, n,
 
         setattr(slam_mod, f"{solver}_solve", recording)
     pp.pop_up = recording_pop_up
+    offline.slam_step = logging_slam_step(offline, kf_log)
     try:
         warm = slam_mod.slam_init(scfg, R0, t0, device=masks_d.device)
         run(warm, masks_d[:warm_frames], oR[:warm_frames], ot[:warm_frames],
             K, pcfg, scfg, depth=depth)
         torch.cuda.synchronize()
-        rec.clear()
-        pops.clear()
+        rec.clear(), pops.clear(), kf_log.clear()
         state = slam_mod.slam_init(scfg, R0, t0, device=masks_d.device)
         torch.cuda.synchronize()
         for fn in counters.values():
@@ -836,8 +1137,23 @@ def run_path(torch, name, slam_mod, pp, run, counters, ref, gpu, scfg, n,
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0_run
         launches = {k: fn.launches for k, fn in counters.items()}
+        free = list(rec), list(pops), list(kf_log)
+        rec.clear(), pops.clear(), kf_log.clear()
+        # each frame again from the reference's own state before it
+        t_a = []
+        t0_run = time.perf_counter()
+        for i in range(n):
+            st_i = convert.slam_state_from_numpy(_anchor(ref, key, i),
+                                                 masks_d.device)
+            st_a, out_a = run(st_i, masks_d[i:i + 1], oR[i:i + 1],
+                              ot[i:i + 1], K, pcfg, scfg, depth=depth)
+            t_a.append(out_a[1])
+        torch.cuda.synchronize()
+        dt_anchored = time.perf_counter() - t0_run
+        anchored_rec, anchored_pops, anchored_log = rec, pops, kf_log
+        rec, pops, kf_log = free
     finally:
-        pp.pop_up = pop_up
+        pp.pop_up, offline.slam_step = pop_up, slam_step
         if solver != "gn":
             setattr(slam_mod, f"{solver}_solve", solve)
     Rs, ts = outs[0], outs[1]
@@ -847,29 +1163,33 @@ def run_path(torch, name, slam_mod, pp, run, counters, ref, gpu, scfg, n,
     if depth:
         assert outs[2].shape == masks_d[:n].shape
         assert float(outs[2].min()) >= 0.0 and float(outs[2].max()) <= 50.0
-    key = "" if name == "gn" else name + "_"
+
+    def discrete_match(st):
+        return {
+            "n_kf": int(st.n_kf) == int(ref[key + "n_kf"]),
+            "n_overflow": int(st.n_overflow) == int(ref[key + "n_overflow"]),
+            "store_valid": bool((st.store.valid.cpu().numpy()
+                                 == ref[key + "store_valid"]).all()),
+        }
+
+    ref_kf = reference_keyframes(ref, key + "anchor.n_kf", key + "n_kf", n)
+    kf_free = hold_keyframes(*keyframe_decisions(torch, se3, kf_log, scfg),
+                             ref_kf)
+    kf_anch = hold_keyframes(
+        *keyframe_decisions(torch, se3, anchored_log, scfg), ref_kf)
+    # the free run
     t_ref, R_ref = ref[key + "t"][:n], ref[key + "R"][:n]
     t_frame = np.abs(ts.cpu().numpy() - t_ref).max(-1)
     R_err = float(np.abs(Rs.cpu().numpy() - R_ref).max())
-    discrete = {
-        "n_kf": int(state.n_kf) == int(ref[key + "n_kf"]),
-        "n_overflow": int(state.n_overflow) == int(ref[key + "n_overflow"]),
-        "store_valid": bool((state.store.valid.cpu().numpy()
-                             == ref[key + "store_valid"]).all()),
-    }
-    branch = acc_held = n
-    differ = []
-    if key + "popup_valid" in ref:
-        valid = torch.stack([v for v, _ in pops]).cpu().numpy()
-        n_pts = torch.stack([c for _, c in pops]).cpu().numpy()
-        ref_valid = ref[key + "popup_valid"][:n]
-        same = (valid == ref_valid).all(-1)
-        same_pts = same & ((n_pts == ref[key + "popup_n_points"][:n])
-                           | ~ref_valid).all(-1)
-        branch = _first_false(same)
-        acc_held = _first_false(same_pts)
-        differ = [int(i) for i in np.nonzero(~same_pts)[0]]
-    held = branch if key else n
+    discrete = discrete_match(state)
+    same, same_pts, valid, n_pts = _popup_same(pops, ref, key, n)
+    held = _first_false(same)
+    acc_held = _first_false(same_pts)
+    # the anchored run
+    t_a = torch.cat(t_a).cpu().numpy()
+    anchored = np.abs(t_a - t_ref).max(-1)
+    anchored_end = discrete_match(st_a)
+    _, a_same_pts, _, _ = _popup_same(anchored_pops, ref, key, n)
     out = {
         "path": name, "solver": solver, "window_size": scfg.window_size,
         "frames": n, "seconds": dt, "frames_per_s": n / dt, "card": gpu,
@@ -880,54 +1200,333 @@ def run_path(torch, name, slam_mod, pp, run, counters, ref, gpu, scfg, n,
         "frames_over_bound": [int(i) for i in
                               np.nonzero(t_frame > TRAJ_BOUND_M)[0]],
         "R_max_abs_err": R_err, "discrete_match": discrete,
+        "keyframe_decisions": kf_free,
         "traj_abs_err_m_per_frame": t_frame.tolist(),
-        "popup_frames_differ": differ,
+        "popup_frames_differ": [int(i) for i in np.nonzero(~same_pts)[0]],
+        "anchored_seconds": dt_anchored,
+        "anchored_traj_max_abs_err_m": float(anchored.max()),
+        "anchored_discrete_match": anchored_end,
+        "anchored_keyframe_decisions": kf_anch,
+        "anchored_popup_frames_differ": [
+            int(i) for i in np.nonzero(~a_same_pts)[0]],
+        "anchored_traj_abs_err_m_per_frame": anchored.tolist(),
     }
-    for what, f in (("popup_branch", branch), ("popup_points_differ",
-                                                acc_held)):
+    for what, f in (("popup_branch", held), ("popup_points_differ",
+                                              acc_held)):
         if f < n:
             out[what] = {
                 "frame": f,
                 "valid": valid[f].astype(int).tolist(),
-                "ref_valid": ref_valid[f].astype(int).tolist(),
+                "ref_valid": ref[key + "popup_valid"][f].astype(int)
+                .tolist(),
                 "n_points": n_pts[f].tolist(),
                 "ref_n_points": ref[key + "popup_n_points"][f].tolist(),
             }
-    n_clear = 0
-    if rec:
-        acc = torch.stack([a for a, _ in rec]).cpu().numpy()[:acc_held]
-        cost = torch.stack([c for _, c in rec]).cpu().numpy()[:acc_held]
+
+    def accept_line(acc, cost, on, frames, from_same_start=False):
+        ref_cost = ref[key + "cost"][:n][on]
+        held = same_start(cost[on], ref_cost) if from_same_start else True
         n_diff, n_clear, where = accept_diffs(
-            acc, cost, ref[key + "accepted"][:acc_held],
-            ref[key + "cost"][:acc_held])
-        out.update(accept_decisions_held=int(acc.size),
-                   accept_diff_from_reference=n_diff,
-                   accept_diff_not_ties=n_clear)
-        # diagnostic, not held: the same count over frames_held, where the
-        # pop-up column counts may already differ
-        acc_v = torch.stack([a for a, _ in rec]).cpu().numpy()[:held]
-        cost_v = torch.stack([c for _, c in rec]).cpu().numpy()[:held]
-        out["accept_diff_not_ties_over_frames_held"] = accept_diffs(
-            acc_v, cost_v, ref[key + "accepted"][:held],
-            ref[key + "cost"][:held])[1]
+            acc[on], cost[on], ref[key + "accepted"][:n][on], ref_cost,
+            held)
+        line = {"frames": int(on.sum()),
+                "decisions": int(np.broadcast_to(held, acc[on].shape).sum()),
+                "differ": n_diff, "differ_not_ties": n_clear}
+        if from_same_start:   # decisions after the iterates parted
+            line["not_compared"] = int((~held).sum())
+            line["differ_after_iterates_parted"] = int(
+                ((acc[on] != ref[key + "accepted"][:n][on]) & ~held).sum())
         if n_clear:   # each differing decision that is not a tie
-            out["accept_diff_not_ties_at"] = [
-                {"frame": int(f), "iteration": int(k),
-                 "accepted": bool(acc[f, k]),
-                 "cost": cost[f].tolist(),
-                 "ref_accepted": bool(ref[key + "accepted"][f, k]),
-                 "ref_cost": ref[key + "cost"][f].tolist()}
+            line["not_ties_at"] = [
+                {"frame": int(frames[f]), "iteration": int(k),
+                 "accepted": bool(acc[on][f, k]),
+                 "cost": cost[on][f].tolist(),
+                 "ref_accepted": bool(ref[key + "accepted"][:n][on][f, k]),
+                 "ref_cost": ref[key + "cost"][:n][on][f].tolist()}
                 for f, k in where]
+        return line
+
+    if rec:
+        acc = _stack_np([a for a, _ in rec])
+        cost = _stack_np([c for _, c in rec])
+        frame = np.arange(n)
+        out["accept"] = accept_line(acc, cost, frame < acc_held,
+                                    frame[:acc_held])
+        out["accept_over_frames_held"] = accept_line(
+            acc, cost, frame < held, frame[:held])
+        acc_a = _stack_np([a for a, _ in anchored_rec])
+        cost_a = _stack_np([c for _, c in anchored_rec])
+        out["anchored_accept"] = accept_line(acc_a, cost_a, a_same_pts,
+                                             np.nonzero(a_same_pts)[0],
+                                             from_same_start=True)
     print(json.dumps(out))
     assert held >= MIN_HELD * n, f"{name}: pop-up branch at frame {held}"
-    assert n_clear == 0, f"{name}: {n_clear} accept decisions differ"
-    assert not rec or acc_held >= ACCEPT_MIN_FRAMES, (
-        f"{name}: pop-up column counts part at frame {acc_held}")
     assert float(t_frame[:held].max()) <= TRAJ_BOUND_M, (
         f"{name}: trajectory off the reference: "
         f"{float(t_frame[:held].max())} m")
     assert all(discrete.values()), (name, discrete)
+    assert not kf_free["differ_not_ties"], (name, "keyframes", kf_free)
+    assert float(anchored.max()) <= TRAJ_BOUND_M, (
+        f"{name}: a frame from the reference's state lands "
+        f"{float(anchored.max())} m off it")
+    assert all(anchored_end.values()), (name, anchored_end)
+    assert not kf_anch["differ_not_ties"], (name, "keyframes", kf_anch)
+    if rec:
+        assert out["accept"]["differ_not_ties"] == 0, (
+            f"{name}: accept decisions differ before the pop-up parts")
+        a = out["anchored_accept"]
+        assert a["frames"] >= max(MIN_HELD * n, ACCEPT_MIN_FRAMES), (
+            f"{name}: the anchored pop-up parts on {n - a['frames']} frames")
+        assert a["differ_not_ties"] == 0, (
+            f"{name}: anchored accept decisions that are not ties differ")
     return launches
+
+
+# fused depth on the stride-16 grid, over the frames whose pop-up equals
+# the reference's in valid walls and column counts (at least MIN_HELD of
+# the run; the depth render reads the walls' extents): the share of grid
+# pixels within max(1 mm, 1e-3 relative) of the reference must be at
+# least FUSED_GRID_FLOOR, and each frame's count of valid filter pixels
+# within FUSED_VALID_COUNT of the reference's
+FUSED_GRID_TOL_M, FUSED_GRID_TOL_REL = 1e-3, 1e-3
+FUSED_GRID_FLOOR = 0.95
+FUSED_VALID_COUNT = 3072          # 1 % of a 480x640 frame
+VO_GRID = 16                      # make_torch_reference.py's grid stride
+VO_CHUNK = 16                     # the runners' chunk in the free run
+
+
+def _anchor(ref, key, i):
+    """The reference's VO state before frame ``i`` (the ``anchor.*`` keys
+    of corridor_ref_vo.npz) as nested dicts."""
+    tree, pre = {}, key + "anchor."
+    for k in ref.files:
+        if k.startswith(pre):
+            node = tree
+            *path, leaf = k[len(pre):].split(".")
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = ref[k][i]
+    return tree
+
+
+def run_vo_path(torch, name, slam_mod, offline, se3, pp, fusion, convert,
+                counters, ref, gpu, scfg, inputs, fused, warm_frames=4):
+    """One monocular path (``make_chunked_vo_runner``, or with ``fused``
+    ``make_chunked_fused_vo_runner``) on the masks alone, twice.
+
+    The free run: ``run_masks_chunked`` over all frames from
+    ``slam_init``, the launch counters zeroed just before and read just
+    after; every frame's keyframe decision is held against the
+    reference's (up to a ``KF_TIE`` tie, each printed), its per-frame
+    trajectory error is reported, not held: the reference's own run parts
+    from itself by 131 mm at frame 48 when its start moves by 1e-7 m, and
+    the run follows another window from its first tie (PERF.md), so no
+    run that is not bit-equal to it follows it over 144 frames.
+
+    The anchored run, which is held: each frame runs through the same
+    runner from the reference's own VO state before that frame
+    (``anchor.*``; the fused runner carries its own filter from frame to
+    frame).  Held as a solver path is held, over ``frames_held`` (the
+    frames whose pop-up finds the reference's set of valid walls; at
+    least MIN_HELD of them): the pose within TRAJ_BOUND_M, the VO step's
+    ``n_matches`` and ``used_prior`` equal; on every frame the keyframe
+    decision as in the free run, and the end state's discrete fields
+    equal; with ``fused`` the fused depth on the stride-16 grid
+    and the filter's valid-pixel count by the rule above, over the held
+    frames whose pop-up column counts equal the reference's too.
+    Returns the free run's launches and keyframes."""
+    masks_d, _, _, R0, t0, K, pcfg = inputs
+    n = masks_d.shape[0]
+    dev = masks_d.device
+    pops, vos, counts, kf_log = [], [], [], []
+    pop_up, vo_step = pp.pop_up, offline.plane_vo_step
+    slam_step = offline.slam_step
+    fuse = fusion.fuse_observation
+
+    def recording_pop_up(*args, **kwargs):
+        res = pop_up(*args, **kwargs)
+        pops.append((res.valid, res.n_points))
+        return res
+
+    def recording_vo(*args, **kwargs):
+        res = vo_step(*args, **kwargs)
+        vos.append((res.n_matches, res.used_prior))
+        return res
+
+    def recording_fuse(*args, **kwargs):
+        flt = fuse(*args, **kwargs)
+        counts.append(flt.valid.sum())
+        return flt
+
+    def runner():
+        if fused:
+            return offline.make_chunked_fused_vo_runner(K, pcfg, scfg)
+        return offline.make_chunked_vo_runner(K, pcfg, scfg)
+
+    def fresh():
+        slam = slam_mod.slam_init(scfg, R0, t0, device=dev)
+        if fused:
+            return offline.fused_vo_init(slam, scfg.max_det, *masks_d.shape[1:])
+        return offline.vo_init(slam, scfg.max_det)
+
+    def clear():
+        pops.clear(), vos.clear(), counts.clear(), kf_log.clear()
+
+    pp.pop_up, offline.plane_vo_step = recording_pop_up, recording_vo
+    fusion.fuse_observation = recording_fuse
+    offline.slam_step = logging_slam_step(offline, kf_log)
+    try:
+        offline.run_masks_chunked(runner(), fresh(), masks_d[:warm_frames])
+        _sync(torch)
+        # the free run
+        run, st = runner(), fresh()
+        _sync(torch)
+        clear()
+        for fn in counters.values():
+            fn.launches = 0
+        t0_run = time.perf_counter()
+        st, outs = offline.run_masks_chunked(run, st, masks_d,
+                                             chunk=VO_CHUNK)
+        _sync(torch)
+        dt = time.perf_counter() - t0_run
+        launches = {k: fn.launches for k, fn in counters.items()}
+        free_slam = st.vo.slam if fused else st.slam
+        free_keyframes = int(free_slam.n_kf) - 1
+        free_pops = [v for v, _ in pops]
+        free_log = list(kf_log)
+        # the anchored run
+        clear()
+        filt = fresh().filt if fused else None
+        anch = []
+        t0_run = time.perf_counter()
+        for i in range(n):
+            vs = convert.vo_state_from_numpy(_anchor(ref, name + "_", i),
+                                             dev)
+            st_a = offline.FusedVOState(vs, filt) if fused else vs
+            st_a, out_a = run(st_a, masks_d[i:i + 1])
+            if fused:
+                filt = st_a.filt
+            anch.append(out_a)
+        _sync(torch)
+        dt_anchored = time.perf_counter() - t0_run
+    finally:
+        pp.pop_up, offline.plane_vo_step = pop_up, vo_step
+        fusion.fuse_observation = fuse
+        offline.slam_step = slam_step
+    key = name + "_"
+    ref_kf = reference_keyframes(ref, key + "anchor.slam.n_kf",
+                                 key + "n_kf", n)
+    kf_free = hold_keyframes(*keyframe_decisions(torch, se3, free_log, scfg),
+                             ref_kf)
+    kf_anch = hold_keyframes(*keyframe_decisions(torch, se3, kf_log, scfg),
+                             ref_kf)
+
+    def traj(outs_):
+        (Rs, ts), depth = outs_ if fused else (outs_, None)
+        assert ts.shape == (n, 3) and Rs.shape == (n, 3, 3)
+        assert torch.isfinite(ts).all() and torch.isfinite(Rs).all()
+        if fused:
+            assert depth.shape == masks_d.shape
+            assert torch.isfinite(depth).all()
+            assert float(depth.min()) >= 0.0 and float(depth.max()) <= 40.0
+        return (np.abs(ts.cpu().numpy() - ref[key + "t"]).max(-1),
+                np.abs(Rs.cpu().numpy() - ref[key + "R"]).max((-1, -2)),
+                depth)
+
+    # the free run: reported
+    t_free, _, _ = traj(outs)
+    free_valid = torch.stack(free_pops).cpu().numpy()
+    free_part = _first_false((free_valid == ref[key + "popup_valid"])
+                             .all(-1))
+    # the anchored run: held
+    t_frame, R_frame, depth = traj(offline._cat(anch))
+    slam = st_a.vo.slam if fused else st_a.slam
+    discrete = {
+        "n_kf": int(slam.n_kf) == int(ref[key + "n_kf"]),
+        "n_overflow": int(slam.n_overflow) == int(ref[key + "n_overflow"]),
+        "store_valid": bool((slam.store.valid.cpu().numpy()
+                             == ref[key + "store_valid"]).all()),
+    }
+    valid = torch.stack([v for v, _ in pops]).cpu().numpy()
+    n_pts = torch.stack([c for _, c in pops]).cpu().numpy()
+    ref_valid = ref[key + "popup_valid"]
+    same = (valid == ref_valid).all(-1)
+    same_pts = same & ((n_pts == ref[key + "popup_n_points"])
+                       | ~ref_valid).all(-1)
+    held = same
+    n_match = torch.stack([m for m, _ in vos]).cpu().numpy()
+    used = torch.stack([u for _, u in vos]).cpu().numpy()
+    match_ok = ((n_match == ref[key + "n_matches"])
+                & (used == ref[key + "used_prior"]))
+    out = {
+        "path": name, "solver": scfg.solver, "window_size": scfg.window_size,
+        "frames": n, "seconds": dt, "frames_per_s": n / dt, "card": gpu,
+        "launches": launches,
+        "free_run": {
+            "keyframes": free_keyframes,
+            "keyframe_decisions": kf_free,
+            "traj_max_abs_err_m": float(t_free.max()),
+            "first_frame_over_bound": _first_false(t_free <= TRAJ_BOUND_M),
+            "first_popup_branch": free_part,
+            "traj_abs_err_m_per_frame": t_free.tolist()},
+        "anchored_seconds": dt_anchored,
+        "traj_bound_m": TRAJ_BOUND_M, "frames_held": int(held.sum()),
+        "traj_held_max_abs_err_m": float(t_frame[held].max()),
+        "R_held_max_abs_err": float(R_frame[held].max()),
+        "frames_over_bound": [int(i) for i in
+                              np.nonzero(t_frame > TRAJ_BOUND_M)[0]],
+        "discrete_match": discrete,
+        "keyframe_decisions": kf_anch,
+        "vo_frames_differ": [int(i) for i in np.nonzero(~match_ok)[0]],
+        "popup_frames_differ": [int(i) for i in np.nonzero(~same_pts)[0]],
+        "popup_branch_frames": [int(i) for i in np.nonzero(~same)[0]],
+        "traj_abs_err_m_per_frame": t_frame.tolist(),
+    }
+    grid_ok = cnt_ok = True
+    if fused:
+        grid = depth[:, ::VO_GRID, ::VO_GRID].cpu().numpy()
+        ref_grid = ref[key + "depth_grid"]
+        near = (np.abs(grid - ref_grid)
+                <= np.maximum(FUSED_GRID_TOL_M,
+                              FUSED_GRID_TOL_REL * np.abs(ref_grid)))
+        cnt = torch.stack(counts).cpu().numpy()
+        cnt_diff = np.abs(cnt.astype(np.int64)
+                          - ref[key + "filter_valid_count"])
+        on = same_pts
+        share = float(near[on].mean())
+        grid_ok = share >= FUSED_GRID_FLOOR and on.sum() >= MIN_HELD * n
+        cnt_ok = int(cnt_diff[on].max()) <= FUSED_VALID_COUNT
+        out.update(
+            depth_grid_share_within=share,
+            depth_grid_floor=FUSED_GRID_FLOOR,
+            depth_grid_tol_m=FUSED_GRID_TOL_M,
+            depth_grid_tol_rel=FUSED_GRID_TOL_REL,
+            depth_grid_share_per_frame=near.mean(axis=(1, 2)).tolist(),
+            depth_frames_held=int(on.sum()),
+            filter_valid_count_max_diff=int(cnt_diff[on].max()),
+            filter_valid_count_diff_per_frame=cnt_diff.tolist(),
+            filter_valid_count_bound=FUSED_VALID_COUNT)
+    print(json.dumps(out))
+    assert held.sum() >= MIN_HELD * n, (
+        f"{name}: pop-up branches leave {int(held.sum())} frames held")
+    assert float(t_frame[held].max()) <= TRAJ_BOUND_M, (
+        f"{name}: trajectory off the reference: "
+        f"{float(t_frame[held].max())} m")
+    assert match_ok[held].all(), (
+        f"{name}: n_matches / used_prior differ at frames "
+        f"{np.nonzero(~match_ok & held)[0].tolist()}")
+    assert all(discrete.values()), (name, discrete)
+    assert not kf_free["differ_not_ties"], (name, "free run", kf_free)
+    assert not kf_anch["differ_not_ties"], (name, "anchored", kf_anch)
+    assert grid_ok and cnt_ok, (f"{name}: fused depth off the reference",
+                                out.get("depth_grid_share_within"),
+                                out.get("filter_valid_count_max_diff"))
+    return launches, free_keyframes
+
+
+def _sync(torch):
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
 
 
 def main() -> int:
@@ -938,7 +1537,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     import pop_up_slam_tpu_torch  # noqa: F401  (full-f32 numerics)
+    from pop_up_slam_tpu_torch import convert, fusion
     from pop_up_slam_tpu_torch.factors import graph
+    from pop_up_slam_tpu_torch.geometry import se3
     from pop_up_slam_tpu_torch.geometry.camera import Intrinsics
     from pop_up_slam_tpu_torch.ops import _build, cholesky, depth_render
     from pop_up_slam_tpu_torch.ops import fused_gn
@@ -947,6 +1548,7 @@ def main() -> int:
     from pop_up_slam_tpu_torch.pipeline import (
         SlamConfig, run_sequence_chunked, slam_init,
     )
+    from pop_up_slam_tpu_torch.pipeline import offline
     from pop_up_slam_tpu_torch.pipeline import slam as slam_mod
     from pop_up_slam_tpu_torch.popup import popup as pp
     from pop_up_slam_tpu_torch.solver import schur as solver_schur
@@ -997,6 +1599,11 @@ def main() -> int:
                                f_mid, scfg.robust)
     k3b_err, k3b_t = check_k3b(torch, ks, cholesky, graph,
                                torch.device("cuda"))
+    check_jacfwd(torch, graph, pj, st_mid.window, f_mid, scfg.robust,
+                 "state_W8_L64")
+    check_jacfwd(torch, graph, pj, *random_system(torch, 8, 64, 72, 5,
+                                                  torch.device("cuda")),
+                 None, "random_W8_L64")
     phase_s["kernel_checks"] = time.perf_counter() - t_ph
 
     # ---- 3. the main path, 4. the solver paths ----
@@ -1009,11 +1616,14 @@ def main() -> int:
     masks_d = torch.as_tensor(masks, device="cuda")
     inputs = (masks_d, oR, ot, R0, t0, K, pcfg)
     n = masks.shape[0]
+    t_ph = time.perf_counter()
+    popup_ok = check_popup_at_reference_poses(torch, pp, K, masks_d, ref)
+    phase_s["popup_at_reference_poses"] = time.perf_counter() - t_ph
     paths = {}
     t_ph = time.perf_counter()
-    paths["gn"] = run_path(torch, "gn", slam_mod, pp, run_sequence_chunked,
-                           counters, ref, gpu, scfg, n, inputs,
-                           warm_frames=16, depth=True)
+    paths["gn"] = run_path(torch, "gn", slam_mod, offline, se3, pp,
+                           run_sequence_chunked, counters, ref, gpu, scfg, n,
+                           inputs, convert, warm_frames=16, depth=True)
     phase_s["gn_path"] = time.perf_counter() - t_ph
     assert paths["gn"]["fused_gn_solve"] == n, paths["gn"]
     assert paths["gn"]["depth_render"] == n, paths["gn"]
@@ -1021,25 +1631,46 @@ def main() -> int:
         assert paths["gn"][k] == 0, paths["gn"]
     for name in ("lm", "dogleg"):
         t_ph = time.perf_counter()
-        paths[name] = run_path(torch, name, slam_mod, pp, run_sequence_chunked,
-                               counters, ref_solvers, gpu,
-                               scfg._replace(solver=name), n, inputs)
+        paths[name] = run_path(torch, name, slam_mod, offline, se3, pp,
+                               run_sequence_chunked, counters, ref_solvers,
+                               gpu, scfg._replace(solver=name), n, inputs,
+                               convert)
         phase_s[f"{name}_path"] = time.perf_counter() - t_ph
         c = paths[name]
         assert c["schur_reduce_small"] == c["plane_terms"] == 2 * n, c
         assert c["fused_gn_solve"] == 0 and c["schur_gemm"] == 0, c
     n24 = 48
     t_ph = time.perf_counter()
-    paths["lm24"] = run_path(torch, "lm24", slam_mod, pp,
-                             run_sequence_chunked,
-                             counters, ref_solvers, gpu,
+    paths["lm24"] = run_path(torch, "lm24", slam_mod, offline, se3, pp,
+                             run_sequence_chunked, counters, ref_solvers, gpu,
                              scfg._replace(solver="lm", window_size=24), n24,
-                             inputs)
+                             inputs, convert)
     phase_s["lm24_path"] = time.perf_counter() - t_ph
     c = paths["lm24"]
     assert c["schur_gemm"] == c["chol_solve"] == 2 * n24, c
     assert c["plane_terms"] == 2 * n24 and c["schur_reduce_small"] == 0, c
     assert c["fused_gn_solve"] == 0, c
+
+    # ---- 5. the monocular paths ----
+    ref_vo = np.load(os.path.join(ref_dir, "corridor_ref_vo.npz"))
+    for name, fused in (("vo", False), ("fused_vo", True)):
+        t_ph = time.perf_counter()
+        paths[name], keyframes = run_vo_path(
+            torch, name, slam_mod, offline, se3, pp, fusion, convert,
+            counters, ref_vo, gpu, scfg, inputs, fused)
+        phase_s[f"{name}_path"] = time.perf_counter() - t_ph
+        c = paths[name]
+        # K1 once a keyframe of the run; each frame's keyframe decision is
+        # held against the reference's in run_vo_path (at kf_trans =
+        # kf_rot = 0 a frame whose VO motion is zero is none: the first,
+        # with no previous planes, in both runs: 143 of 144)
+        assert c["fused_gn_solve"] == keyframes >= MIN_HELD * n, (
+            c, keyframes)
+        assert c["depth_render"] == (n if fused else 0), c
+        for k in ("chol_solve", "schur_reduce_small", "schur_gemm",
+                  "plane_terms"):
+            assert c[k] == 0, c
+    assert popup_ok, "the pop-up at the reference's poses parts from it"
 
     # ---- 5. summary ----
     def row(name, counter, own_path, source, replaces, err, tm,

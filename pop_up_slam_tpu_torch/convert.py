@@ -5,7 +5,8 @@ Each ``*_from_numpy`` takes the reference object's arrays as numpy
 names, or a dict keyed by them — and returns the port's tuple on
 ``device`` with the dtypes kept (f32, int32, bool).  Each ``*_to_numpy``
 returns a tuple of the same type with numpy arrays.  Nested tuples
-(``Factors``, ``SlamState``) convert recursively.  No module of the JAX
+(``Factors``, ``SlamState``, ``VOState``, ``FusedVOState``) convert
+recursively.  No module of the JAX
 package is imported here.
 """
 
@@ -16,8 +17,10 @@ import torch
 
 from .factors.graph import (Factors, OdomFactors, PlaneFactors, PosePriors,
                            Window)
+from .fusion.depth_fusion import DepthFilter
 from .geometry.camera import Intrinsics
 from .mapping.landmark_store import LandmarkStore
+from .pipeline.offline import FusedVOState, VOState
 from .pipeline.slam import FrameDetections, SlamState
 from .popup.popup import PopupPlanes
 
@@ -36,6 +39,9 @@ _NESTED = {
     (Factors, "priors"): PosePriors,
     (SlamState, "window"): Window,
     (SlamState, "store"): LandmarkStore,
+    (VOState, "slam"): SlamState,
+    (FusedVOState, "vo"): VOState,
+    (FusedVOState, "filt"): DepthFilter,
 }
 
 
@@ -92,6 +98,19 @@ def frame_detections_from_numpy(x, device) -> FrameDetections:
     return _from(FrameDetections, x, device)
 
 
+def vo_state_from_numpy(x, device) -> VOState:
+    return _from(VOState, x, device)
+
+
+def fused_vo_state_from_numpy(x, device) -> FusedVOState:
+    return _from(FusedVOState, x, device)
+
+
+def depth_filter_from_numpy(x, device) -> DepthFilter:
+    return _from(DepthFilter, x, device)
+
+
 intrinsics_to_numpy = window_to_numpy = factors_to_numpy = _to
 landmark_store_to_numpy = slam_state_to_numpy = _to
 popup_planes_to_numpy = frame_detections_to_numpy = _to
+vo_state_to_numpy = fused_vo_state_to_numpy = depth_filter_to_numpy = _to

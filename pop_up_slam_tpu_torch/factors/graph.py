@@ -6,9 +6,12 @@ Factor types: odometry (between two window poses), plane observations,
 and absolute pose priors; residuals are whitened by per-factor
 square-root information matrices.
 
-Only the analytic linearization is ported (``analytic_poses=True``,
-``analytic_planes=True`` — the production configuration).  The
-reference's per-factor ``jacfwd`` variants are not; calling them raises.
+Both linearizations are ported: the closed-form Jacobians
+(``analytic_poses=True``, ``analytic_planes=True``, the production
+configuration; the plane terms through the plane-Jacobian kernel on
+CUDA) and the reference's per-factor ``jacfwd`` at a zero perturbation
+(``torch.func.jacfwd`` under ``torch.func.vmap``), picked by
+:func:`linearize`'s flags with the reference's defaults.
 """
 
 from __future__ import annotations
@@ -16,15 +19,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.func import jacfwd, vmap
 
 from ..geometry import plane, se3
 from .robust import RobustConfig, apply_weights
 from .robust import rho as _rho
-
-_JACFWD_TODO = (
-    "the per-factor jacfwd linearization is not ported yet (see the "
-    "ROADMAP.md queue); use analytic_poses=True, analytic_planes=True"
-)
 
 
 class Window(NamedTuple):
@@ -98,22 +97,35 @@ def _mv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return (A @ x[..., None])[..., 0]
 
 
-def odom_residual(Ri, ti, Rj, tj, R_meas, t_meas, sqrt_info):
-    """Whitened 6-dim residual log(meas^-1 T_i^-1 T_j)."""
+def odom_residual(Ri, ti, Rj, tj, R_meas, t_meas, sqrt_info, xi_i=None,
+                  xi_j=None):
+    """Whitened 6-dim residual log(meas^-1 (T_i e^xi_i)^-1 (T_j e^xi_j))."""
+    if xi_i is not None:
+        Ri, ti = se3.se3_retract(Ri, ti, xi_i)
+    if xi_j is not None:
+        Rj, tj = se3.se3_retract(Rj, tj, xi_j)
     R_rel, t_rel = se3.se3_between(Ri, ti, Rj, tj)
     R_err, t_err = se3.se3_between(R_meas, t_meas, R_rel, t_rel)
     return _mv(sqrt_info, se3.se3_log(R_err, t_err))
 
 
-def plane_residual(R_wc, t_wc, pi_w, pi_meas_c, sqrt_info):
+def plane_residual(R_wc, t_wc, pi_w, pi_meas_c, sqrt_info, xi=None,
+                   delta=None):
     """Whitened Hessian-normal plane residual (2 normal-tangent radians +
-    1 metric distance)."""
+    1 metric distance) with T_wc <- T_wc e^xi and pi_w <- pi_w ⊞ delta."""
+    if xi is not None:
+        R_wc, t_wc = se3.se3_retract(R_wc, t_wc, xi)
+    if delta is not None:
+        pi_w = plane.retract(pi_w, delta)
     R_cw, t_cw = se3.se3_inverse(R_wc, t_wc)
     pred = plane.transform(pi_w, R_cw, t_cw)
     return _mv(sqrt_info, plane.hessian_local(pred, pi_meas_c))
 
 
-def prior_residual(R, t, R_prior, t_prior, sqrt_info):
+def prior_residual(R, t, R_prior, t_prior, sqrt_info, xi=None):
+    """Whitened 6-dim residual log(P^-1 T e^xi) of an absolute prior."""
+    if xi is not None:
+        R, t = se3.se3_retract(R, t, xi)
     R_err, t_err = se3.se3_between(R_prior, t_prior, R, t)
     return _mv(sqrt_info, se3.se3_log(R_err, t_err))
 
@@ -133,16 +145,81 @@ def _mask(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.where(v, x, torch.zeros_like(x))
 
 
+def _zero(n: int, like: torch.Tensor) -> torch.Tensor:
+    """A zero perturbation (1, n).  Each factor keeps a leading unit
+    axis under ``vmap``: ``jacfwd`` through a 0-d tensor times a Python
+    float promotes the tangent to f64 in ``torch.func``."""
+    return torch.zeros((1, n), dtype=like.dtype, device=like.device)
+
+
+def _unit(*xs):
+    return tuple(x[None] for x in xs)
+
+
 def _odom_terms(window: Window, f: OdomFactors):
-    raise NotImplementedError(_JACFWD_TODO)
+    """Residuals + jacfwd Jacobians of all odometry factors at a zero
+    perturbation: (r (O,6), Ji (O,6,6), Jj (O,6,6)), zero where
+    invalid."""
+    i, j = f.i.long(), f.j.long()
+
+    def one(Ri, ti, Rj, tj, R_meas, t_meas, A, valid):
+        Ri, ti, Rj, tj, R_meas, t_meas, A = _unit(Ri, ti, Rj, tj, R_meas,
+                                                  t_meas, A)
+
+        def res(xi_i, xi_j):
+            return odom_residual(Ri, ti, Rj, tj, R_meas, t_meas, A, xi_i,
+                                 xi_j)[0]
+
+        z = _zero(6, ti)
+        r = res(z, z)
+        Ji = jacfwd(res, argnums=0)(z, z)[:, 0]
+        Jj = jacfwd(res, argnums=1)(z, z)[:, 0]
+        # where-mask (not multiply): a padded factor linearized at the
+        # identity can give NaN Jacobians, and NaN * 0 == NaN
+        return _mask(valid, r), _mask(valid, Ji), _mask(valid, Jj)
+
+    return vmap(one)(window.R[i], window.t[i], window.R[j], window.t[j],
+                     f.R_meas, f.t_meas, f.sqrt_info, f.valid)
 
 
 def _plane_terms(window: Window, f: PlaneFactors):
-    raise NotImplementedError(_JACFWD_TODO)
+    """Residuals + jacfwd Jacobians of all plane factors: (r (F,3),
+    Jp (F,3,6), Jl (F,3,3)), zero where invalid."""
+    p, l = f.pose_idx.long(), f.lm_idx.long()
+
+    def one(R_wc, t_wc, pi_w, pi_meas, A, valid):
+        R_wc, t_wc, pi_w, pi_meas, A = _unit(R_wc, t_wc, pi_w, pi_meas, A)
+
+        def res(xi, delta):
+            return plane_residual(R_wc, t_wc, pi_w, pi_meas, A, xi,
+                                  delta)[0]
+
+        z6, z3 = _zero(6, t_wc), _zero(3, t_wc)
+        r = res(z6, z3)
+        Jp = jacfwd(res, argnums=0)(z6, z3)[:, 0]
+        Jl = jacfwd(res, argnums=1)(z6, z3)[:, 0]
+        return _mask(valid, r), _mask(valid, Jp), _mask(valid, Jl)
+
+    return vmap(one)(window.R[p], window.t[p], window.planes[l], f.pi_meas,
+                     f.sqrt_info, f.valid)
 
 
 def _prior_terms(window: Window, f: PosePriors):
-    raise NotImplementedError(_JACFWD_TODO)
+    """Residuals + jacfwd Jacobians of all pose priors: (r (P,6),
+    J (P,6,6)), zero where invalid."""
+    idx = f.idx.long()
+
+    def one(R, t, Rp, tp, A, valid):
+        R, t, Rp, tp, A = _unit(R, t, Rp, tp, A)
+
+        def res(xi):
+            return prior_residual(R, t, Rp, tp, A, xi)[0]
+
+        z = _zero(6, t)
+        return _mask(valid, res(z)), _mask(valid, jacfwd(res)(z)[:, 0])
+
+    return vmap(one)(window.R[idx], window.t[idx], f.R, f.t, f.sqrt_info,
+                     f.valid)
 
 
 def _odom_terms_analytic(window: Window, f: OdomFactors):
@@ -186,10 +263,10 @@ def linearize(window: Window, factors: Factors, analytic_planes: bool = False,
               analytic_poses: bool = True) -> Linearization:
     """Blocked Gauss-Newton normal equations of the window.
 
-    Only the analytic Jacobians are ported: ``analytic_planes=False`` or
-    ``analytic_poses=False`` raise ``NotImplementedError``."""
-    if not (analytic_planes and analytic_poses):
-        raise NotImplementedError(_JACFWD_TODO)
+    ``analytic_planes=True`` takes the plane terms in closed form (the
+    plane-Jacobian kernel on CUDA tensors), ``False`` by per-factor
+    ``jacfwd``; ``analytic_poses`` picks the same for the odometry and
+    prior terms.  The defaults are the reference's."""
     if robust is None:
         robust = RobustConfig()
     W = window.window_size
@@ -203,7 +280,8 @@ def linearize(window: Window, factors: Factors, analytic_planes: bool = False,
     bl = torch.zeros((L, 3), dtype=dt, device=dev)
 
     # --- odometry ---
-    r_o, Ji, Jj = _odom_terms_analytic(window, factors.odom)
+    odom_terms = _odom_terms_analytic if analytic_poses else _odom_terms
+    r_o, Ji, Jj = odom_terms(window, factors.odom)
     r_o, Ji, Jj, rho_o = apply_weights(robust.odom, r_o, Ji, Jj)
     hij = _hess(Ji, Jj)
     oi, oj = factors.odom.i.long(), factors.odom.j.long()
@@ -215,10 +293,13 @@ def linearize(window: Window, factors: Factors, analytic_planes: bool = False,
     bp.index_put_((oj,), _grad(Jj, r_o), accumulate=True)
     cost = 0.5 * torch.sum(rho_o)
 
-    # --- plane observations (K5 on CUDA tensors) ---
-    from ..ops.plane_jacobians import plane_terms
+    # --- plane observations (K5 on CUDA tensors when analytic) ---
+    if analytic_planes:
+        from ..ops.plane_jacobians import plane_terms
 
-    r_f, Jp, Jl = plane_terms(window, factors.planes)
+        r_f, Jp, Jl = plane_terms(window, factors.planes)
+    else:
+        r_f, Jp, Jl = _plane_terms(window, factors.planes)
     r_f, Jp, Jl, rho_f = apply_weights(robust.plane, r_f, Jp, Jl)
     pi_, li_ = factors.planes.pose_idx.long(), factors.planes.lm_idx.long()
     Hpp.index_put_((pi_, pi_), _hess(Jp, Jp), accumulate=True)
@@ -229,7 +310,8 @@ def linearize(window: Window, factors: Factors, analytic_planes: bool = False,
     cost = cost + 0.5 * torch.sum(rho_f)
 
     # --- priors ---
-    r_p, Jq = _prior_terms_analytic(window, factors.priors)
+    prior_terms = _prior_terms_analytic if analytic_poses else _prior_terms
+    r_p, Jq = prior_terms(window, factors.priors)
     r_p, Jq, rho_p = apply_weights(robust.prior, r_p, Jq)
     qi = factors.priors.idx.long()
     Hpp.index_put_((qi, qi), _hess(Jq, Jq), accumulate=True)

@@ -29,10 +29,26 @@ class Intrinsics(NamedTuple):
 
 
 def pixel_rays(K: Intrinsics, uv: torch.Tensor) -> torch.Tensor:
-    """Pixels (..., 2) -> unit-z rays (..., 3) in the camera frame."""
-    x = (uv[..., 0] - K.cx) / K.fx
-    y = (uv[..., 1] - K.cy) / K.fy
+    """Pixels (..., 2) -> unit-z rays (..., 3) in the camera frame.
+
+    Scales by the f32 reciprocal of the focal length rather than dividing
+    by it: the reference's runners close over their intrinsics, and XLA
+    compiles a division by a constant as that product, which rounds
+    differently (the pop-up's boundary branches on it)."""
+    x = (uv[..., 0] - K.cx) * (1.0 / K.fx)
+    y = (uv[..., 1] - K.cy) * (1.0 / K.fy)
     return torch.stack([x, y, torch.ones_like(x)], dim=-1)
+
+
+def project(K: Intrinsics, p_cam: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """Camera-frame points (..., 3) -> pixels (..., 2); no validity check
+    (callers mask on z > 0)."""
+    z = p_cam[..., 2]
+    z = torch.where(torch.abs(z) < eps, torch.full_like(z, eps), z)
+    u = K.fx * p_cam[..., 0] / z + K.cx
+    v = K.fy * p_cam[..., 1] / z + K.cy
+    return torch.stack([u, v], dim=-1)
 
 
 def ray_plane_depth(rays: torch.Tensor, pi_cam: torch.Tensor,
@@ -52,7 +68,11 @@ def ray_plane_depth(rays: torch.Tensor, pi_cam: torch.Tensor,
 def backproject_to_world_plane(K: Intrinsics, uv, R_wc, t_wc, pi_w,
                                eps: float = 1e-6):
     """Intersect pixel rays with a world-frame plane (the pop-up step).
-    Returns (p_world (..., 3), valid)."""
+    Returns (p_world (..., 3), valid).  Rounds as XLA's CPU code for the
+    reference's runners does: rays by the reciprocal focal length
+    (:func:`pixel_rays`), and ``t + s * r`` as one fused multiply-add in
+    x and y (emulated in f64, which holds the f32 product exactly) but as
+    a product then a sum in z."""
     r_cam = pixel_rays(K, uv)
     r_w = (R_wc @ r_cam[..., None])[..., 0]
     n = pi_w[..., :3]
@@ -63,5 +83,7 @@ def backproject_to_world_plane(K: Intrinsics, uv, R_wc, t_wc, pi_w,
                        denom)
     s = num / safe
     valid = (torch.abs(denom) >= eps) & (s > eps)
-    p = t_wc + s[..., None] * r_w
-    return p, valid
+    p_xy = (s[..., None].double() * r_w[..., :2].double()
+            + t_wc[..., :2].double()).to(s.dtype)
+    p_z = t_wc[..., 2] + s * r_w[..., 2]
+    return torch.cat([p_xy, p_z[..., None]], dim=-1), valid

@@ -37,6 +37,11 @@ def normalize(pi: torch.Tensor) -> torch.Tensor:
     return pi * s[..., None]
 
 
+def from_normal_distance(n: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Unit plane from an (unnormalized) normal and offset: n.p + d = 0."""
+    return normalize(torch.cat([n, d[..., None]], dim=-1))
+
+
 def to_hessian_normal(pi: torch.Tensor):
     """(unit normal n, signed distance d) with ||n|| = 1."""
     n = pi[..., :3]
@@ -74,6 +79,17 @@ def retract(pi: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """pi ⊞ delta: move along the tangent basis, renormalize to S^3."""
     B = tangent_basis(pi)
     return normalize(pi + (B @ delta[..., None])[..., 0])
+
+
+def local(pi_ref: torch.Tensor, pi: torch.Tensor) -> torch.Tensor:
+    """Minimal 3-dim difference of pi w.r.t. pi_ref (inverse of
+    :func:`retract` to first order), taking the sign of pi closest to
+    pi_ref."""
+    sign = torch.where(
+        torch.sum(pi_ref * pi, dim=-1, keepdim=True) >= 0.0, 1.0, -1.0)
+    d = sign * pi - pi_ref
+    B = tangent_basis(pi_ref)
+    return (B.transpose(-1, -2) @ d[..., None])[..., 0]
 
 
 def normal_tangent_basis(n: torch.Tensor) -> torch.Tensor:

@@ -53,6 +53,11 @@ def hat(phi: torch.Tensor) -> torch.Tensor:
     )
 
 
+def vee(M: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`hat`."""
+    return torch.stack([M[..., 2, 1], M[..., 0, 2], M[..., 1, 0]], dim=-1)
+
+
 def _where_small(x, small_val, exact_fn):
     small = torch.abs(x) < _SMALL
     safe = torch.where(small, torch.ones_like(x), x)
@@ -114,6 +119,25 @@ def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
     q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
     sign = torch.where(q[..., :1] < 0.0, -1.0, 1.0)
     return q * sign
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w, x, y, z) -> rotation matrix."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    ww, xx, yy, zz = w * w, x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    return torch.stack(
+        [
+            torch.stack([ww + xx - yy - zz, 2 * (xy - wz), 2 * (xz + wy)],
+                        dim=-1),
+            torch.stack([2 * (xy + wz), ww - xx + yy - zz, 2 * (yz - wx)],
+                        dim=-1),
+            torch.stack([2 * (xz - wy), 2 * (yz + wx), ww - xx - yy + zz],
+                        dim=-1),
+        ],
+        dim=-2,
+    )
 
 
 def so3_log(R: torch.Tensor) -> torch.Tensor:
@@ -230,6 +254,15 @@ def se3_right_jacobian_inv(xi: torch.Tensor) -> torch.Tensor:
     return se3_left_jacobian_inv(-xi)
 
 
+def se3_right_jacobian_inv_approx(xi: torch.Tensor) -> torch.Tensor:
+    """First-order J_r^-1(xi) ~= I + 0.5 ad(xi), with
+    ad(xi) = [[phi^, rho^], [0, phi^]]."""
+    rho, phi = xi[..., :3], xi[..., 3:]
+    px = hat(phi)
+    ad = _blocks(px, hat(rho), torch.zeros_like(px), px)
+    return _eye(6, xi) + 0.5 * ad
+
+
 def se3_adjoint(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """[[R, t^ R], [0, R]] for translation-first xi."""
     return _blocks(R, hat(t) @ R, torch.zeros_like(R), R)
@@ -260,3 +293,14 @@ def se3_retract(R, t, xi):
     """Right-multiplicative retraction (R, t) * exp(xi)."""
     dR, dt = se3_exp(xi)
     return se3_compose(R, t, dR, dt)
+
+
+def se3_matrix(R, t):
+    """(R, t) -> 4x4 homogeneous matrix (batched)."""
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
+                          device=R.device).expand(R.shape[:-2] + (1, 4))
+    return torch.cat([torch.cat([R, t[..., None]], dim=-1), bottom], dim=-2)
+
+
+def se3_from_matrix(T):
+    return T[..., :3, :3], T[..., :3, 3]

@@ -109,8 +109,13 @@ def marginal_sqrt(R0, t0, R1, t1, odom_R0, odom_t0, odom_valid0, prior_R,
 
 def fused_gn_plain(window: Window, factors: Factors, iters: int, damping,
                    robust: RobustConfig, marg=None, marg_static=None):
-    """Plain PyTorch version of the kernel (same returns)."""
+    """Plain PyTorch version of the kernel (same returns).  Its reduced
+    system is solved as the kernel and the reference's fused body solve
+    it: Schur elimination, then a Cholesky that skips an indefinite pivot
+    (:func:`..ops.schur.schur_reduce_plain`), where the per-op
+    ``solve_schur`` would return NaN and so a zero step."""
     from ..solver import gn_solve
+    from .schur import schur_reduce_plain
 
     m_sqrt = None
     if marg is not None:
@@ -133,6 +138,7 @@ def fused_gn_plain(window: Window, factors: Factors, iters: int, damping,
             sqrt_info=torch.where(full, m_sqrt, prA).expand(P, 6, 6),
         ))
     w_opt, stats = gn_solve(window, factors, iters=iters, damping=damping,
+                            solve_fn=schur_reduce_plain,
                             analytic_planes=True, robust=robust)
     costs = stats.cost_history[:iters]
     if m_sqrt is not None:

@@ -57,8 +57,8 @@ def gn_solve(window: Window, factors: Factors, iters: int = 5,
              damping: float = 1e-6, solve_fn=solve_schur,
              analytic_planes: bool = False, robust=None):
     """Fixed-iteration damped Gauss-Newton.  Returns (window, SolveStats).
-    Only the analytic linearization is ported, so ``analytic_planes``
-    must be True."""
+    ``analytic_planes`` picks the closed-form plane Jacobians over the
+    per-factor ``jacfwd`` ones (:func:`..factors.graph.linearize`)."""
     costs, norms = [], []
     for _ in range(iters):
         lin = linearize(window, factors, analytic_planes=analytic_planes,

@@ -1,12 +1,16 @@
 """Profile the PyTorch port's main path (or a solver path) on one GPU.
 
     python3 scripts/profile_torch_port.py [--frames 32] [--repeats 3]
-        [--solver gn|lm|dogleg] [--window 8]
+        [--solver gn|lm|dogleg] [--window 8] [--path odom|vo|fused_vo]
 
 Runs a path of ``chip_smoke.py``: 480x640 corridor masks, ``SlamConfig()``
 widths (``--window`` poses), every frame a keyframe, chunks of 16; with
 ``--solver gn`` (the main path) depth is rendered per frame, with ``lm``
-or ``dogleg`` it is not, as in ``chip_smoke.py``:
+or ``dogleg`` it is not, as in ``chip_smoke.py``.  ``--path vo`` and
+``--path fused_vo`` run the monocular runners instead (no odometry input:
+``make_chunked_vo_runner`` / ``make_chunked_fused_vo_runner`` through
+``run_masks_chunked``, GN), with the plane-VO step and the fusion
+functions as stages of their own:
 
 1. ``--repeats`` untraced passes over all 144 frames: frames/s on the
    host clock (each pass ends in ``torch.cuda.synchronize()``);
@@ -18,7 +22,8 @@ or ``dogleg`` it is not, as in ``chip_smoke.py``:
    per launch of the port's own kernels;
 3. where the host syncs come from: the source line of every
    synchronizing call over 4 frames (``torch.cuda.set_sync_debug_mode``);
-4. the kernel section (``--kernels-only`` runs it alone): K1's phase
+4. the kernel section (``--kernels-only`` runs it alone; not after a
+   ``--path vo|fused_vo`` profile): K1's phase
    split on the chip-smoke state (24 frames in, window full, marginal
    on), from the kernel's ``%globaltimer`` stamps averaged over
    ``--launches`` launches; K1's CUDA-event time per launch; K3a's phase
@@ -334,6 +339,8 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true")
     ap.add_argument("--launches", type=int, default=200)
     ap.add_argument("--chol-n", default="48,144,384")
+    ap.add_argument("--path", choices=("odom", "vo", "fused_vo"),
+                    default="odom")
     args = ap.parse_args()
 
     import torch
@@ -344,6 +351,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     import pop_up_slam_tpu_torch  # noqa: F401
+    from pop_up_slam_tpu_torch import fusion
     from pop_up_slam_tpu_torch.geometry.camera import Intrinsics
     from pop_up_slam_tpu_torch.ops import _build
     from pop_up_slam_tpu_torch.pipeline import (
@@ -366,18 +374,29 @@ def main() -> int:
     scfg = SlamConfig(max_det=pcfg.max_segments + 1, kf_trans=0.0,
                       kf_rot=0.0, solver=args.solver,
                       window_size=args.window)
-    depth = args.solver == "gn"
+    depth = args.solver == "gn" and args.path != "vo"
     K = Intrinsics.create(320.0, 320.0, 320.0, 240.0, device="cuda")
     if args.kernels_only:
         kernel_section(args, torch, z, masks, gpu)
         return 0
-    print(json.dumps({"solver": args.solver, "window_size": args.window,
-                      "depth": depth}))
+    print(json.dumps({"path": args.path, "solver": args.solver,
+                      "window_size": args.window, "depth": depth}))
 
     def run(frames):
         st = slam_init(scfg, z["R0"], z["t0"])
-        out = run_sequence_chunked(st, masks_d[:frames], oR[:frames],
-                                   ot[:frames], K, pcfg, scfg, depth=depth)
+        if args.path == "odom":
+            out = run_sequence_chunked(st, masks_d[:frames], oR[:frames],
+                                       ot[:frames], K, pcfg, scfg,
+                                       depth=depth)
+        elif args.path == "vo":
+            out = offline.run_masks_chunked(
+                offline.make_chunked_vo_runner(K, pcfg, scfg),
+                offline.vo_init(st, scfg.max_det), masks_d[:frames])
+        else:
+            out = offline.run_masks_chunked(
+                offline.make_chunked_fused_vo_runner(K, pcfg, scfg),
+                offline.fused_vo_init(st, scfg.max_det, h, w),
+                masks_d[:frames])
         torch.cuda.synchronize()
         return out
 
@@ -405,7 +424,12 @@ def main() -> int:
                   ranged(offline.pp, "render_depth")),
                  (offline, "detections_from_popup",
                   ranged(offline, "detections_from_popup")),
-                 (offline, "slam_step", ranged(offline, "slam_step"))]
+                 (offline, "slam_step", ranged(offline, "slam_step")),
+                 (offline, "plane_vo_step",
+                  ranged(offline, "plane_vo_step"))]
+    originals += [(fusion, name, ranged(fusion, name))
+                  for name in ("propagate_to_frame", "init_from_popup",
+                               "fuse_observation")]
     f = args.frames
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -473,7 +497,8 @@ def main() -> int:
     print(json.dumps({"sync_sites_per_frame": sorted(
         [[k, c / 4] for k, c in sites.items()], key=lambda x: -x[1])}))
 
-    kernel_section(args, torch, z, masks, gpu)
+    if args.path == "odom":     # the monocular paths run the same kernels
+        kernel_section(args, torch, z, masks, gpu)
     return 0
 
 

@@ -162,10 +162,15 @@ def test_plane_transform_and_camera():
 
 
 def test_port_imports_without_jax():
-    """The port imports in a process where ``import jax`` fails."""
+    """The port imports in a process where ``import jax`` and the JAX
+    package both fail: every module, the monocular slice's included."""
     code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['pop_up_slam_tpu'] = None; "
             "import pop_up_slam_tpu_torch, pop_up_slam_tpu_torch.pipeline, "
-            "pop_up_slam_tpu_torch.ops, pop_up_slam_tpu_torch.convert; "
+            "pop_up_slam_tpu_torch.ops, pop_up_slam_tpu_torch.convert, "
+            "pop_up_slam_tpu_torch.odometry, pop_up_slam_tpu_torch.fusion, "
+            "pop_up_slam_tpu_torch.factors.graph, "
+            "pop_up_slam_tpu_torch.pipeline.offline; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,

@@ -25,6 +25,7 @@ from _torch_parity import assert_close, corridor_K, corridor_inputs, salt
 from pop_up_slam_tpu.geometry import camera as jcam
 from pop_up_slam_tpu.geometry.camera import Intrinsics as JK
 from pop_up_slam_tpu.popup import popup as jpp
+from pop_up_slam_tpu_torch.geometry import camera as tcam
 from pop_up_slam_tpu_torch.geometry.camera import Intrinsics as TK
 from pop_up_slam_tpu_torch.popup import popup as tpp
 
@@ -199,3 +200,83 @@ def test_xla_cumsum_matches_jax(n):
     np.testing.assert_array_equal(tpp._xla_cumsum(torch.as_tensor(x)).numpy(),
                                   want)
 
+
+
+def _divided_backprojection(K, uv, R_wc, t_wc, pi_w, eps=1e-6):
+    """The back-projection rounded as plain f32 arithmetic does (the
+    focal lengths divided, ``t + s * r`` rounded twice): the rounding
+    that parts from the reference's runners."""
+    x = (uv[..., 0] - K.cx) / K.fx
+    y = (uv[..., 1] - K.cy) / K.fy
+    r_w = (R_wc @ torch.stack([x, y, torch.ones_like(x)], -1)[..., None])[
+        ..., 0]
+    denom = torch.sum(pi_w[:3] * r_w, dim=-1)
+    num = -(torch.sum(pi_w[:3] * t_wc, dim=-1) + pi_w[3])
+    s = num / torch.where(denom.abs() < eps, torch.full_like(denom, eps),
+                          denom)
+    return t_wc + s[..., None] * r_w, (denom.abs() >= eps) & (s > eps)
+
+
+def test_pop_up_at_the_reference_poses_matches_its_record(monkeypatch):
+    """The port's pop-up at 480x640, given the pose the reference gave its
+    own pop-up on a corridor frame of the main path (``popup_R`` /
+    ``popup_t`` in ``corridor_ref.npz``), finds the reference's valid
+    walls and column counts: on frames 7 and 77, where the plain f32
+    rounding of the back-projection (the focal lengths divided, ``t + s *
+    r`` rounded twice, see the next test) parts from the reference, and on
+    six others (``chip_smoke.py`` and tests/test_torch_cuda.py hold all
+    144 frames on the card)."""
+    masks, _, _, _, _ = corridor_inputs(1)
+    ref = np.load("pop_up_slam_tpu_torch/data/corridor_ref.npz")
+    K = TK.create(*corridor_K(1), device="cpu")
+
+    def parted():
+        out = []
+        for i in (0, 7, 40, 47, 77, 80, 120, 134):
+            res = tpp.pop_up(K, torch.as_tensor(masks[i]),
+                             torch.as_tensor(ref["popup_R"][i]),
+                             torch.as_tensor(ref["popup_t"][i]))
+            if not (np.array_equal(res.valid.numpy(), ref["popup_valid"][i])
+                    and np.array_equal(res.n_points.numpy(),
+                                       ref["popup_n_points"][i])):
+                out.append(i)
+        return out
+
+    assert parted() == []
+    monkeypatch.setattr(tcam, "backproject_to_world_plane",
+                        _divided_backprojection)
+    assert parted() == [7, 77]
+
+
+def test_backprojection_rounds_as_the_reference_runner():
+    """The reference's runners close over their intrinsics, so XLA
+    compiles ``(u - cx) / fx`` as a product with the f32 reciprocal, and
+    ``t + s * r`` as one fused multiply-add in x and y.  The port's rays
+    and ground points equal the jitted reference bit for bit on frame 7's
+    boundary; the plain f32 rounding (the quotient, the twice-rounded sum)
+    does not."""
+    masks, _, _, _, _ = corridor_inputs(1)
+    ref = np.load("pop_up_slam_tpu_torch/data/corridor_ref.npz")
+    Kj = JK.create(*corridor_K(1))
+    Kt = TK.create(*corridor_K(1), device="cpu")
+    v_b, _ = tpp.extract_boundary(torch.as_tensor(masks[7]))
+    uv = torch.stack([torch.arange(640, dtype=torch.float32), v_b - 0.5], -1)
+    R, t = ref["popup_R"][7], ref["popup_t"][7]
+    ground = np.array([0.0, 0.0, 1.0, 0.0], np.float32)
+    rays_j, (p_j, ok_j) = jax.jit(lambda uv, R, t: (
+        jcam.pixel_rays(Kj, uv),
+        jcam.backproject_to_world_plane(Kj, uv, R, t, jnp.asarray(ground))))(
+            uv.numpy(), R, t)
+    rays_t = tcam.pixel_rays(Kt, uv)
+    p_t, ok_t = tcam.backproject_to_world_plane(
+        Kt, uv, torch.as_tensor(R), torch.as_tensor(t),
+        torch.as_tensor(ground))
+    np.testing.assert_array_equal(rays_t.numpy(), np.asarray(rays_j))
+    np.testing.assert_array_equal(p_t.numpy(), np.asarray(p_j))
+    np.testing.assert_array_equal(ok_t.numpy(), np.asarray(ok_j))
+    # the plain f32 rounding: each step parts from the reference
+    assert not torch.equal((uv[:, 0] - Kt.cx) / Kt.fx, rays_t[:, 0])
+    r_w = (torch.as_tensor(R) @ rays_t[..., None])[..., 0]
+    s = -(torch.as_tensor(t)[2]) / r_w[:, 2]
+    twice = torch.as_tensor(t)[:2] + s[:, None] * r_w[:, :2]
+    assert not torch.equal(twice, p_t[:, :2])

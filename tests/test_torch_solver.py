@@ -144,14 +144,21 @@ def test_failed_factorization_keeps_the_state(no_debug_nans):
 
 
 def test_unported_paths_raise():
-    """The per-factor jacfwd linearization is still unported and raises;
-    the reduced-solve dispatch and LM no longer do (their parity tests
-    are in test_torch_solvers.py)."""
+    """No path of this module raises for being unported any more: the
+    per-factor jacfwd linearization, the last one, now runs and agrees
+    with the closed form (its parity tests are in test_torch_jacfwd.py),
+    as the reduced-solve dispatch and LM do (test_torch_solvers.py); an
+    unknown solve route still raises."""
     _, _, wt, ft = _problem(prior_gauge=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgraph.linearize(wt, ft, analytic_planes=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgraph._plane_terms(wt, ft.planes)
+    lin_j = tgraph.linearize(wt, ft, analytic_planes=False)
+    lin_a = tgraph.linearize(wt, ft, analytic_planes=True)
+    for a, b in zip(lin_j, lin_a):
+        assert torch.isfinite(a).all()
+        assert_close(a, b.numpy(), 1e-5 * max(1.0, float(b.abs().max())))
+    r, Jp, Jl = tgraph._plane_terms(wt, ft.planes)
+    assert torch.isfinite(Jp).all() and Jl.shape[1:] == (3, 3)
+    with pytest.raises(ValueError, match="pallas"):
+        tschur.make_solve_fn("bogus")
     solve_on = tschur.make_solve_fn("on")
     w_t, stats = tgn.lm_solve(wt, ft, iters=1, solve_fn=solve_on,
                               analytic_planes=True)
