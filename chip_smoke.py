@@ -74,9 +74,20 @@
    on ``fused_vo`` K2 once a frame; no other kernel; the trajectory
    error per frame reported), and once frame by frame from the
    reference's own state (held: see ``run_vo_path``).
-6. Prints the ``{"kernels": [...]}`` line (one row per kernel; K4's row
+6. Drives the TUM entry point against ``corridor_ref_tum.npz``: the
+   ``tum`` path (``cli.main(["run", "--config", "tum_fr3", ...])``
+   in-process over a TUM tree of the 144 masks written by the port's
+   ``write_tum_tree``: ``gt_perturb``, smoothed; K1 once a keyframe solve,
+   K5 8 times; the free run, the anchored smoother and the marginals
+   held as ``run_tum_path`` says), the ``tum_vo`` path
+   (``odometry="plane_vo"`` over the first 48 frames) and the
+   ``popup_demo`` path (``cli`` at 480x640: K2 once, the wall count the
+   reference CLI's); K5 held against its plain version at the
+   smoother's shape (W = N rounded up to 8, F = 9 N).
+7. Prints the ``{"kernels": [...]}`` line (one row per kernel; K4's row
    is lm24's n=144, its other timed sizes, which no path launches, are
-   nested under ``other_n`` with 0 launches), the card line, and last
+   nested under ``other_n`` with 0 launches; K5's row also carries its
+   time at the smoother's shape), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero without the last
@@ -90,6 +101,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -119,6 +131,13 @@ K3B_TOL = (1e-3, 5e-3)    # tiled route: a 138-240-dim f32 factorization
 JACFWD_TOL = 1e-5
 NEAR_AXIS = 1e-3
 NEAR_AXIS_CAP = 5e-3
+# the smoother's factors are the whole corridor trajectory's: every one of
+# its 172 valid factors lies within 8.3 degrees of an axis (1 - max|n_k|
+# <= 0.0106), where the f32 closed form itself parts from f64 by up to
+# 1.7e-3 in the residual rows (its plain version on the CPU), 3.6e-5 at
+# the two farthest; so every residual row takes the near-axis rule (the
+# row tolerance K5_TOL / (1 - max|n_k|), capped, against f64)
+NEAR_AXIS_SMOOTHER = 1.0
 
 
 def _gpu_line() -> str:
@@ -358,14 +377,14 @@ def _err(a, b, rtol, atol):
     return float(d.max()), int((d > atol + rtol * b.abs()).sum())
 
 
-def near_axis_rows(torch, pf):
+def near_axis_rows(torch, pf, band=NEAR_AXIS):
     """(near-axis mask (F,), per-factor residual-row tolerance (F,) f64):
     min(K5_TOL / (1 - max|n_k|), NEAR_AXIS_CAP) for valid factors whose
-    measured normal lies within NEAR_AXIS of an axis, K5_TOL for the
+    measured normal lies within ``band`` of an axis, K5_TOL for the
     others.  1 - max|n_k| is taken in f64 from the f32 measurement."""
     n = pf.pi_meas[:, :3].double()
     gap = 1.0 - (n / n.norm(dim=1, keepdim=True)).abs().max(dim=1).values
-    near = pf.valid & (gap < NEAR_AXIS)
+    near = pf.valid & (gap < band)
     tau = torch.where(near, (K5_TOL / gap).clamp(max=NEAR_AXIS_CAP),
                       torch.full_like(gap, K5_TOL))
     return near, tau
@@ -382,70 +401,88 @@ def near_axis_rows_held(r, r64, near, tau):
 
 
 def _double(torch, x):
-    """A NamedTuple of tensors with its floating tensors in f64."""
-    return type(x)(*(v.double() if v.is_floating_point() else v for v in x))
+    """A (nested) NamedTuple of tensors with its floating tensors in
+    f64."""
+    if isinstance(x, torch.Tensor):
+        return x.double() if x.is_floating_point() else x
+    return type(x)(*(_double(torch, v) for v in x))
+
+
+def hold_k5(torch, pj, name, w, f, band=NEAR_AXIS):
+    """K5 vs plane_terms_analytic on one factor set, every entry at K5_TOL
+    except the residual rows of near-axis factors (``near_axis_rows`` with
+    ``band``), which are held against the closed form in f64 at their row
+    tolerance; the sha256 of its (r, Jp, Jl); two launches bit-identical.
+    Returns the max abs error."""
+    out_k = pj.plane_terms(w, f)
+    out_k2 = pj.plane_terms(w, f)
+    out_p = pj.plane_terms_analytic(w, f)
+    # the closed form in f64, for the residual rows of near-axis factors
+    # (held at K5_TOL / (1 - max|n_k|), not dropped)
+    r64 = pj.plane_terms_analytic(_double(torch, w), _double(torch, f))[0]
+    near, tau = near_axis_rows(torch, f, band)
+    torch.cuda.synchronize()
+    err, bad_by = 0.0, []
+    for i, (a, b) in enumerate(zip(out_k, out_p)):
+        assert torch.isfinite(a).all(), name
+        rows = ~near if i == 0 else slice(None)
+        e, n_bad = _err(a[rows], b[rows], K5_TOL, K5_TOL)
+        err = max(err, e)
+        bad_by.append(n_bad)
+    e_near, n_bad = near_axis_rows_held(out_k[0], r64, near, tau)
+    bad_by.append(n_bad)
+    bad = sum(bad_by)
+    zero_ok = all(not a[~f.valid].any() for a in out_k)
+    same = all(torch.equal(a, b) for a, b in zip(out_k, out_k2))
+    print(json.dumps({"check": "K5", "case": name,
+                      "W": w.window_size, "L": w.max_landmarks,
+                      "F": int(f.valid.shape[0]),
+                      "smem_bytes": pj.smem_bytes(w.window_size,
+                                                  w.max_landmarks),
+                      "valid_factors": int(f.valid.sum()),
+                      "near_axis_band": band,
+                      "near_axis_factors": int(near.sum()),
+                      "max_abs_err": err,
+                      "near_axis_r_max_abs_err_f64": e_near,
+                      "near_axis_r_tol_max": float(
+                          tau[near].max()) if bool(near.any()) else 0.0,
+                      "near_axis_r_tol_form": "tol (1 + |r_f64|)",
+                      "entries_out_of_tol": bad,
+                      "out_of_tol_r_Jp_Jl_near": bad_by, "rtol": K5_TOL,
+                      "atol": K5_TOL, "invalid_rows_zero": zero_ok,
+                      "two_launches_bit_identical": same,
+                      "sha256": sha256_of(*out_k),
+                      "pass": bad == 0 and zero_ok and same}))
+    assert bad == 0 and zero_ok and same, f"K5 {name}"
+    return err
+
+
+def k5_timing(torch, pj, w, f):
+    """K5's and its plain version's times, and its work, on one set."""
+    return dict(ms=_time_ms(lambda: pj.plane_terms(w, f)),
+                plain_ms=_time_ms(lambda: pj.plane_terms_analytic(w, f),
+                                  n=20),
+                library_ms=None, work=k5_work(w, f))
 
 
 def check_k5(torch, pj, window, pf, torch_dev):
-    """K5 vs plane_terms_analytic on the state's 72 factors and on a
-    random F=37 set with invalid factors, every entry at K5_TOL except
-    the residual rows of near-axis factors (``near_axis_rows``), which
-    are held against the closed form in f64 at their row tolerance; the
-    sha256 of its (r, Jp, Jl) on both; two launches bit-identical; its
-    in-kernel time from its stamps on the state."""
+    """K5 (``hold_k5``) on the state's 72 factors and on a random F=37
+    set with invalid factors; its in-kernel time from its stamps on the
+    state."""
     rw, rf = random_system(torch, 6, 10, 37, 3, torch_dev)
     rpf = rf.planes._replace(valid=rf.planes.valid.clone())
     rpf.valid[:3] = False
-    worst, timing = 0.0, None
-    for name, w, f in (("state_F72", window, pf), ("random_F37", rw, rpf)):
-        out_k = pj.plane_terms(w, f)
-        out_k2 = pj.plane_terms(w, f)
-        out_p = pj.plane_terms_analytic(w, f)
-        # the closed form in f64, for the residual rows of near-axis
-        # factors (held at K5_TOL / (1 - max|n_k|), not dropped)
-        r64 = pj.plane_terms_analytic(_double(torch, w), _double(torch, f))[0]
-        near, tau = near_axis_rows(torch, f)
-        torch.cuda.synchronize()
-        err, bad = 0.0, 0
-        for i, (a, b) in enumerate(zip(out_k, out_p)):
-            assert torch.isfinite(a).all(), name
-            rows = ~near if i == 0 else slice(None)
-            e, n_bad = _err(a[rows], b[rows], K5_TOL, K5_TOL)
-            err, bad = max(err, e), bad + n_bad
-        e_near, n_bad = near_axis_rows_held(out_k[0], r64, near, tau)
-        bad += n_bad
-        zero_ok = all(not a[~f.valid].any() for a in out_k)
-        same = all(torch.equal(a, b) for a, b in zip(out_k, out_k2))
-        print(json.dumps({"check": "K5", "case": name,
-                          "F": int(f.valid.shape[0]),
-                          "valid_factors": int(f.valid.sum()),
-                          "near_axis_factors": int(near.sum()),
-                          "max_abs_err": err,
-                          "near_axis_r_max_abs_err_f64": e_near,
-                          "near_axis_r_tol_max": float(
-                              tau[near].max()) if bool(near.any()) else 0.0,
-                          "near_axis_r_tol_form": "tol (1 + |r_f64|)",
-                          "entries_out_of_tol": bad, "rtol": K5_TOL,
-                          "atol": K5_TOL, "invalid_rows_zero": zero_ok,
-                          "two_launches_bit_identical": same,
-                          "sha256": sha256_of(*out_k),
-                          "pass": bad == 0 and zero_ok and same}))
-        assert bad == 0 and zero_ok and same, f"K5 {name}"
-        worst = max(worst, err)
-        if timing is None:
-            stamps = torch.zeros((50, pj.N_STAMPS), dtype=torch.int64,
-                                 device=torch_dev)
-            for r in range(stamps.shape[0]):
-                pj.plane_terms(w, f, stamps=stamps[r])
-            torch.cuda.synchronize()
-            assert bool((stamps.diff(dim=1) >= 0).all()), "K5 stamps"
-            timing = dict(
-                ms=_time_ms(lambda: pj.plane_terms(w, f)),
-                plain_ms=_time_ms(lambda: pj.plane_terms_analytic(w, f),
-                                  n=20),
-                library_ms=None, work=k5_work(w, f),
-                kernel_ms_stamped=float((stamps[:, -1] - stamps[:, 0])
-                                        .double().mean()) / 1e6)
+    worst = max(hold_k5(torch, pj, "state_F72", window, pf),
+                hold_k5(torch, pj, "random_F37", rw, rpf))
+    stamps = torch.zeros((50, pj.N_STAMPS), dtype=torch.int64,
+                         device=torch_dev)
+    for r in range(stamps.shape[0]):
+        pj.plane_terms(window, pf, stamps=stamps[r])
+    torch.cuda.synchronize()
+    assert bool((stamps.diff(dim=1) >= 0).all()), "K5 stamps"
+    timing = k5_timing(torch, pj, window, pf)
+    timing["kernel_ms_stamped"] = float(
+        (stamps[:, -1] - stamps[:, 0]).double().mean()) / 1e6
     return worst, timing
 
 
@@ -1298,15 +1335,7 @@ VO_CHUNK = 16                     # the runners' chunk in the free run
 def _anchor(ref, key, i):
     """The reference's VO state before frame ``i`` (the ``anchor.*`` keys
     of corridor_ref_vo.npz) as nested dicts."""
-    tree, pre = {}, key + "anchor."
-    for k in ref.files:
-        if k.startswith(pre):
-            node = tree
-            *path, leaf = k[len(pre):].split(".")
-            for p in path:
-                node = node.setdefault(p, {})
-            node[leaf] = ref[k][i]
-    return tree
+    return _tree(ref, key + "anchor.", i)
 
 
 def run_vo_path(torch, name, slam_mod, offline, se3, pp, fusion, convert,
@@ -1524,6 +1553,308 @@ def run_vo_path(torch, name, slam_mod, offline, se3, pp, fusion, convert,
     return launches, free_keyframes
 
 
+# ---- the TUM entry point (corridor_ref_tum.npz) ----
+
+TUM_INTRINSICS = ("320", "320", "320", "240")   # the masks' camera
+# the anchored smoother: keyframe poses of smooth_trajectory on the
+# reference's recorder and final state (1.4e-6 m from the reference on the
+# CPU, scripts/make_torch_reference.py's inputs; the card sums in another
+# order)
+SMOOTH_TOL_M = 1e-4
+# the marginals: relative to each output's largest entry.  The port
+# forms and inverts the reduced system in f64; the reference's own f32
+# pose covariance lies 1.8e-3 from the f64 evaluation of the same formula
+# on this state (the CPU), so the port is held against that f64
+# evaluation (from the state in f64), within the larger of MARG_TOL and
+# the reference's own distance from it, and its distance from the
+# reference is reported
+MARG_TOL = 1e-3
+TUM_VO_FRAMES = 48
+
+
+def _tree(ref, prefix, i=0):
+    """The keys ``prefix...`` of a reference file as nested dicts, entry
+    ``i`` of each."""
+    tree = {}
+    for k in ref.files:
+        if k.startswith(prefix):
+            node = tree
+            *path, leaf = k[len(prefix):].split(".")
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = ref[k][i]
+    return tree
+
+
+def _rel_err(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _cli_json(main, argv):
+    """(exit code, printed JSON) of an in-process CLI call."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, json.loads(buf.getvalue())
+
+
+def run_tum_path(torch, se3, pp, offline, convert, counters, ref, gpu,
+                 masks, root, dev="cuda"):
+    """The ``tum`` path: ``cli.main(["run", "--config", "tum_fr3", ...])``
+    in-process on the card over a TUM tree of the 144 masks written by
+    the port's ``write_tum_tree`` (``gt_perturb``, smoothed), the launch
+    counters zeroed just before and read just after.
+
+    Held: the free run's trajectory within TRAJ_BOUND_M over the frames
+    before its pop-up first finds another set of valid walls than the
+    reference's (at least MIN_HELD of the run), ``n_kf`` exactly, every
+    keyframe decision the reference's up to a printed ``KF_TIE`` tie; K1
+    once a keyframe solve, K5 8 times (the smoother's iterations), no
+    other kernel.  Then from the reference's recorded recorder and final
+    state: ``smooth_trajectory`` (anchored) within SMOOTH_TOL_M of the
+    reference's keyframes with K5 launched 8 times and no Schur or
+    Cholesky kernel (the per-op ``solve_schur``), K5 held against its
+    plain version at the smoother's shape, and ``recover_marginals`` as
+    MARG_TOL says.  Reports frames/s, the smoother's ms and the host
+    syncs per frame (``torch.cuda`` sync debug warnings, the recorder's
+    device reads among them).  Returns (launches, K5's check at the
+    smoother's shape)."""
+    import warnings
+
+    from pop_up_slam_tpu_torch import cli
+    from pop_up_slam_tpu_torch.config import get_config
+    from pop_up_slam_tpu_torch.factors.graph import linearize
+    from pop_up_slam_tpu_torch.io.tum_fixture import write_tum_tree
+    from pop_up_slam_tpu_torch.pipeline import smoothing
+    from pop_up_slam_tpu_torch.pipeline.slam import _build_factors
+    from pop_up_slam_tpu_torch.runners import tum_runner
+    from pop_up_slam_tpu_torch.solver import recover_marginals
+
+    seq = os.path.join(root, "tum")
+    t0 = time.perf_counter()
+    write_tum_tree(seq, masks, ref["gt_R"], ref["gt_t"], ref["stamps"])
+    write_s = time.perf_counter() - t0
+    n = masks.shape[0]
+    scfg = get_config("tum_fr3").slam
+    pops, kf_log, captured = [], [], {}
+    pop_up, slam_step = pp.pop_up, offline.slam_step
+    run_tum = tum_runner.run_tum_sequence
+
+    def recording_pop_up(*args, **kwargs):
+        res = pop_up(*args, **kwargs)
+        pops.append(res.valid)
+        return res
+
+    pp.pop_up = recording_pop_up
+    offline.slam_step = logging_slam_step(offline, kf_log)
+    tum_runner.run_tum_sequence = (
+        lambda *a, **k: run_tum(*a, out=captured, **k))
+    argv = ["run", "--config", "tum_fr3", "--device", dev,
+            "--sequence-dir", seq, "--height", "480", "--width", "640",
+            "--intrinsics", *TUM_INTRINSICS]
+    try:
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rc, summary = _cli_json(cli.main, argv)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        pp.pop_up, offline.slam_step = pop_up, slam_step
+        tum_runner.run_tum_sequence = run_tum
+    n_syncs = sum("synchroniz" in str(w.message) for w in syncs)
+    assert rc == 0, rc
+    est_t, est_R = captured["est_t"], captured["est_R"]
+    assert est_t.shape == (n, 3) and np.isfinite(est_t).all()
+    assert np.isfinite(est_R).all() and np.isfinite(captured["kf_t"]).all()
+    for x in captured["marginals"]:
+        assert bool(torch.isfinite(x).all())
+    rec, state = captured["recorder"], captured["state"]
+
+    # the free run: frame k's estimate follows frame k-1's pop-up record
+    valid = _stack_np(pops)
+    same = (valid == ref["popup_valid"]).all(-1)
+    held = 1 + _first_false(same)
+    t_frame = np.abs(est_t - ref["est_t"]).max(-1)
+    kf_ref = np.diff(np.concatenate([[0], ref["frame_kf"]])) > 0
+    kf = hold_keyframes(*keyframe_decisions(torch, se3, kf_log, scfg),
+                        kf_ref)
+    solves = int(kf["keyframes"])
+    out = {"path": "tum", "frames": n, "card": gpu, "summary": summary,
+           "tree_write_s": write_s, "launches": launches,
+           "keyframe_solves": solves, "n_kf": int(state.n_kf),
+           "ref_n_kf": int(ref["n_kf"]),
+           "frames_per_s": summary["frames_per_s"],
+           "smooth_ms": summary["stage_timing"]["smooth"]["total_s"] * 1e3,
+           "host_syncs": n_syncs, "host_syncs_per_frame": n_syncs / (n - 1),
+           "recorder_pulls": rec.pulls,
+           "recorder_pulls_per_frame": rec.pulls / (n - 1),
+           "frames_held": held, "traj_bound_m": TRAJ_BOUND_M,
+           "traj_held_max_abs_err_m": float(t_frame[:held].max()),
+           "traj_max_abs_err_m": float(t_frame.max()),
+           "traj_abs_err_m_per_frame": t_frame.tolist(),
+           "keyframe_decisions": kf,
+           "ate_rmse_m": summary["ate_rmse_m"],
+           "ref_ate_rmse_m": float(ref["ate_rmse_m"]),
+           "ate_filter_rmse_m": summary["ate_filter_rmse_m"],
+           "ref_ate_filter_rmse_m": float(ref["ate_filter_rmse_m"])}
+    if held < n:
+        out["popup_branch"] = {
+            "frame": held, "valid": valid[held - 1].astype(int).tolist(),
+            "ref_valid": ref["popup_valid"][held - 1].astype(int).tolist()}
+
+    # anchored: the smoother and the marginals on the reference's state
+    dev = torch.device(dev)
+    rec_a = smoothing.TrajectoryRecorder.restore(scfg, _tree(ref, "rec.",
+                                                             slice(None)))
+    st_a = convert.slam_state_from_numpy(_tree(ref, "state."), dev)
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    kf_R, kf_t, _ = smoothing.smooth_trajectory(rec_a, st_a, scfg, iters=8,
+                                                damping=scfg.damping)
+    torch.cuda.synchronize()
+    smooth_ms = (time.perf_counter() - t0) * 1e3
+    anchored_launches = {k: fn.launches for k, fn in counters.items()}
+    smooth_err = float(np.abs(kf_t - ref["kf_t"]).max())
+    smooth_R_err = float(np.abs(kf_R - ref["kf_R"]).max())
+    marg = recover_marginals(linearize(st_a.window, _build_factors(st_a,
+                                                                   scfg)),
+                             st_a.window)
+    st64 = _double(torch, st_a)
+    marg64 = recover_marginals(linearize(st64.window, _build_factors(
+        st64, scfg)), st64.window)
+    marg_line = {}
+    for name, a, b in zip(marg._fields, marg, marg64):
+        r = torch.as_tensor(ref[name], device=dev)
+        marg_line[name] = {
+            "vs_ref": _rel_err(a, r), "vs_f64": _rel_err(a.double(), b),
+            "ref_vs_f64": _rel_err(r.double(), b)}
+    window, factors, N = smoothing.build_smoothing_problem(rec_a, st_a, scfg)
+    out.update(
+        anchored_smooth_launches=anchored_launches,
+        anchored_smooth_ms=smooth_ms, anchored_keyframes=N,
+        anchored_smooth_window=window.window_size,
+        anchored_smooth_factors=int(factors.planes.valid.shape[0]),
+        anchored_smooth_max_abs_err_m=smooth_err,
+        anchored_smooth_R_max_abs_err=smooth_R_err,
+        anchored_smooth_tol_m=SMOOTH_TOL_M, marginals=marg_line,
+        marginals_tol=MARG_TOL)
+    print(json.dumps(out))
+    assert held >= MIN_HELD * n, f"tum: pop-up branch at frame {held}"
+    assert out["traj_held_max_abs_err_m"] <= TRAJ_BOUND_M, out[
+        "traj_held_max_abs_err_m"]
+    assert out["n_kf"] == out["ref_n_kf"], (out["n_kf"], out["ref_n_kf"])
+    assert not kf["differ_not_ties"], ("tum keyframes", kf)
+    assert launches["fused_gn_solve"] == solves == out["n_kf"] - 1, launches
+    assert launches["plane_terms"] == 8, launches
+    for k in ("depth_render", "chol_solve", "schur_reduce_small",
+              "schur_gemm"):
+        assert launches[k] == 0, launches
+    assert anchored_launches["plane_terms"] == 8, anchored_launches
+    assert sum(anchored_launches.values()) == 8, anchored_launches
+    assert smooth_err <= SMOOTH_TOL_M, smooth_err
+    for name, m in marg_line.items():
+        assert m["vs_f64"] <= max(MARG_TOL, m["ref_vs_f64"]), (name, m)
+    return launches, (window, factors.planes)
+
+
+def run_tum_vo_path(torch, counters, gpu, root, dev="cuda"):
+    """The ``tum_vo`` path: ``run_tum_sequence(odometry="plane_vo")`` over
+    the first TUM_VO_FRAMES frames of the tree ``run_tum_path`` wrote (no
+    ground truth consumed), smoothed.  Held: K1 once a keyframe solve, K5
+    8 times, no other kernel, every output finite; the ATE and ``n_kf``
+    reported.  The plane-VO frame function itself is held frame by frame
+    on the ``vo`` path."""
+    from pop_up_slam_tpu_torch.config import get_config
+    from pop_up_slam_tpu_torch.runners import tum_runner
+
+    fx, fy, cx, cy = (float(v) for v in TUM_INTRINSICS)
+    cfg = get_config("tum_fr3", sequence_dir=os.path.join(root, "tum"),
+                     fx=fx, fy=fy, cx=cx, cy=cy)
+    out = {}
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    summary = tum_runner.run_tum_sequence(cfg, odometry="plane_vo",
+                                          max_frames=TUM_VO_FRAMES,
+                                          device=dev, out=out)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    solves = int(out["state"].n_kf) - 1
+    line = {"path": "tum_vo", "frames": TUM_VO_FRAMES, "card": gpu,
+            "summary": summary, "launches": launches,
+            "keyframe_solves": solves}
+    print(json.dumps(line))
+    for k in ("est_t", "est_R", "kf_t", "kf_R"):
+        assert np.isfinite(out[k]).all(), k
+    for x in out["marginals"]:
+        assert bool(torch.isfinite(x).all())
+    assert np.isfinite(summary["ate_rmse_m"]), summary
+    assert launches["fused_gn_solve"] == solves >= 1, launches
+    assert launches["plane_terms"] == 8, launches
+    for k in ("depth_render", "chol_solve", "schur_reduce_small",
+              "schur_gemm"):
+        assert launches[k] == 0, launches
+    return launches
+
+
+def run_popup_demo_path(torch, pp, depth_render, counters, ref, gpu,
+                        dev="cuda"):
+    """The ``popup_demo`` path: ``cli.main(["run", "--config",
+    "popup_demo"])`` on the card (480x640), counters zeroed around it: K2
+    renders the depth once; ``n_wall_planes`` equals the reference CLI's,
+    the depth error's median and p95 printed beside the reference's.
+    Then K2 on that frame against its plain version.  Returns (launches,
+    K2's max abs error)."""
+    from pop_up_slam_tpu_torch import cli
+    from pop_up_slam_tpu_torch.geometry.camera import Intrinsics
+    from pop_up_slam_tpu_torch.io import synthetic
+
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    rc, summary = _cli_json(cli.main, ["run", "--config", "popup_demo",
+                                       "--device", dev])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    ref_line = {k: float(ref[f"popup_demo_{k}"]) for k in (
+        "n_wall_planes", "depth_median_rel_err", "depth_p95_rel_err")}
+    # K2 against its plain version on the same frame
+    K = Intrinsics.create(320.0, 320.0, 320.0, 240.0, device=dev)
+    R, t = synthetic.corridor_trajectory(1, device=dev)
+    labels, _ = synthetic.render_frame(K, R[0], t[0],
+                                       synthetic.corridor_world(device=dev),
+                                       480, 640)
+    mask = labels == synthetic.LABEL_GROUND
+    res = pp.pop_up(K, mask, R[0], t[0], pp.PopupConfig())
+    d_k = depth_render.depth_render(K, res, mask, R[0], t[0])
+    d_p = pp.depth_from_popup(K, res, mask, R[0], t[0])
+    torch.cuda.synchronize()
+    diff = (d_k - d_p).abs()
+    n_bad = int((diff > K2_ATOL + K2_RTOL * d_p.abs()).sum())
+    line = {"path": "popup_demo", "card": gpu, "summary": summary,
+            "reference": ref_line, "launches": launches,
+            "k2_max_abs_err": float(diff.max()), "k2_pixels_out_of_tol":
+            n_bad}
+    print(json.dumps(line))
+    assert rc == 0 and n_bad == 0, line
+    assert summary["n_wall_planes"] == int(ref_line["n_wall_planes"]), line
+    assert launches["depth_render"] == 1, launches
+    assert sum(launches.values()) == 1, launches
+    return launches, float(diff.max())
+
+
 def _sync(torch):
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -1672,7 +2003,27 @@ def main() -> int:
             assert c[k] == 0, c
     assert popup_ok, "the pop-up at the reference's poses parts from it"
 
-    # ---- 5. summary ----
+    # ---- 6. the TUM entry point, its monocular mode, popup_demo ----
+    ref_tum = np.load(os.path.join(ref_dir, "corridor_ref_tum.npz"))
+    with tempfile.TemporaryDirectory() as root:
+        t_ph = time.perf_counter()
+        paths["tum"], (w_smooth, pf_smooth) = run_tum_path(
+            torch, se3, pp, offline, convert, counters, ref_tum, gpu, masks,
+            root)
+        phase_s["tum_path"] = time.perf_counter() - t_ph
+        t_ph = time.perf_counter()
+        paths["tum_vo"] = run_tum_vo_path(torch, counters, gpu, root)
+        phase_s["tum_vo_path"] = time.perf_counter() - t_ph
+    k5_err = max(k5_err, hold_k5(torch, pj, "smoother", w_smooth,
+                                 pf_smooth, band=NEAR_AXIS_SMOOTHER))
+    k5_smooth_t = k5_timing(torch, pj, w_smooth, pf_smooth)
+    t_ph = time.perf_counter()
+    paths["popup_demo"], k2_demo_err = run_popup_demo_path(
+        torch, pp, depth_render, counters, ref_tum, gpu)
+    phase_s["popup_demo_path"] = time.perf_counter() - t_ph
+    k2_err = max(k2_err, k2_demo_err)
+
+    # ---- 7. summary ----
     def row(name, counter, own_path, source, replaces, err, tm,
             on_path=True):
         b_ms, b_by = _bound(*tm["work"])
@@ -1715,6 +2066,14 @@ def main() -> int:
         row("K5 plane_terms", "plane_terms", "lm", src + "plane_terms.cu",
             "pop_up_slam_tpu/ops/plane_jacobians.py:315", k5_err, k5_t),
     ]
+    b_ms, b_by = _bound(*k5_smooth_t["work"])
+    kernels[-1]["smoother_shape"] = {
+        "W": w_smooth.window_size, "F": int(pf_smooth.valid.shape[0]),
+        "launches_tum": paths["tum"]["plane_terms"],
+        "ms": k5_smooth_t["ms"], "plain_ms": k5_smooth_t["plain_ms"],
+        "bound_ms": b_ms, "bound_by": b_by,
+        "bytes": k5_smooth_t["work"][0],
+        "operations": k5_smooth_t["work"][1]}
     print(json.dumps({"kernels": kernels,
                       "note": "K4's routine also runs inside K1 and K3a; "
                               "its standalone kernel follows K3b (lm24 "

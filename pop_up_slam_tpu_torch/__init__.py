@@ -14,6 +14,10 @@ its layout and names so that every module has a counterpart:
                   depth render, Cholesky), each beside its plain
                   PyTorch version.
 - ``convert``   : numpy <-> port state conversion.
+- ``io``, ``evaluation``, ``models``, ``utils``, ``runners``,
+  ``config``, ``cli`` : TUM sequences (and a PNG codec), the synthetic
+  world, ATE/RPE, the classical segmenter, timing and checkpoints, the
+  TUM runner, the five presets and the command line.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 or CPU tensors; without a GPU they raise instead of silently running on

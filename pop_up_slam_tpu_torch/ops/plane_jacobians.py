@@ -31,6 +31,14 @@ from ._build import check, check_inputs, check_stamps, library
 
 # K5's phase stamps: start, loads staged, closed form, stores issued
 N_STAMPS = 4
+# one block's shared memory on the H100; the kernel stages the window
+# there: 4 (12 W + 4 L + 30 * 32) bytes, opted in above 48 KB
+SMEM_BUDGET = 232448
+
+
+def smem_bytes(W: int, L: int) -> int:
+    """K5's dynamic shared memory for a window of W poses, L landmarks."""
+    return 4 * (12 * W + 4 * L + 30 * 32)
 
 
 def plane_terms_analytic(window, factors):
@@ -135,6 +143,11 @@ def plane_terms(window, factors, stamps=None):
            (factors.valid, (F,), torch.bool))
     check_inputs("plane_terms", dev, *ins)
     check_stamps("plane_terms", stamps, dev, N_STAMPS)
+    if smem_bytes(W, L) > SMEM_BUDGET:
+        raise ValueError(
+            f"plane_terms: a window of W={W}, L={L} needs "
+            f"{smem_bytes(W, L)} bytes of shared memory, above one "
+            f"block's {SMEM_BUDGET}")
     out = torch.empty(30 * F, dtype=torch.float32, device=dev)
     r = out[:3 * F].view(F, 3)
     Jp = out[3 * F:21 * F].view(F, 3, 6)

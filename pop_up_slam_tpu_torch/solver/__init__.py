@@ -1,3 +1,4 @@
+from .covariance import Marginals, recover_marginals  # noqa: F401
 from .dogleg import dogleg_solve  # noqa: F401
 from .gauss_newton import (  # noqa: F401
     SolveStats,

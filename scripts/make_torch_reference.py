@@ -54,9 +54,32 @@ valid pixels of the fused filter after each frame) and ``depth_grid``
 filter) that each frame starts from, one key per leaf
 (``anchor.slam.window.R`` ...), stacked over the frames.
 
-Run from the repository root (no argument writes all three files):
+``tum`` (``pop_up_slam_tpu_torch/data/corridor_ref_tum.npz``): the
+TUM entry point.  A TUM tree is written with the port's
+``write_tum_tree``: seg PNGs are the 144 masks, ground truth their own
+poses (``synthetic.corridor_trajectory(145)[1:]``, as
+``scripts/gen_bench_inputs.py`` rendered them), stamps 30 fps with the
+fixture's ground-truth jitter.  The JAX ``run_tum_sequence`` runs on it
+with the ``tum_fr3`` preset at intrinsics (320, 320, 320, 240), 480x640,
+the fused GN body forced on (as the port runs K1 on the GPU),
+``gt_perturb``, ``smooth=True``, seed 0, checkpointing at the end (the
+snapshot gives its filtering trajectory, recorder and final state).
+Keys: ``gt_R`` / ``gt_t`` / ``stamps`` (the tree's inputs), ``est_R`` /
+``est_t`` (every frame's estimate), ``frame_kf`` (each frame's keyframe
+index) and ``n_kf``, ``rec.*`` (the recorder's ``snapshot()``),
+``state.*`` (the final ``SlamState``, one key per leaf with a leading
+axis of 1), ``popup_valid`` / ``popup_n_points`` (frames 1-143),
+``kf_R`` / ``kf_t`` (the smoothed keyframes: ``smooth_trajectory`` on
+that recorder and state, as the runner calls it), ``pose_cov`` /
+``plane_cov`` (``recover_marginals`` of the final window, as the runner
+calls it), ``ate_rmse_m``, ``ate_filter_rmse_m``, ``pose_trans_std_m``,
+``pose_rot_std_rad`` (the summary's), and ``popup_demo_*``: the JAX
+CLI's ``popup_demo`` summary (``n_wall_planes``, the depth's median and
+p95 relative error).
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_reference.py [gn] [solvers] [vo]
+Run from the repository root (no argument writes all four files):
+
+    JAX_PLATFORMS=cpu python scripts/make_torch_reference.py [gn] [solvers] [vo] [tum]
 """
 
 from __future__ import annotations
@@ -74,6 +97,8 @@ DATA = os.path.join(_REPO, "pop_up_slam_tpu_torch", "data")
 OUT = os.path.join(DATA, "corridor_ref.npz")
 OUT_SOLVERS = os.path.join(DATA, "corridor_ref_solvers.npz")
 OUT_VO = os.path.join(DATA, "corridor_ref_vo.npz")
+OUT_TUM = os.path.join(DATA, "corridor_ref_tum.npz")
+TUM_INTRINSICS = (320.0, 320.0, 320.0, 240.0)
 VO_GRID = 16      # stride of the recorded fused-depth grid
 
 # name -> (SlamConfig overrides, frames)
@@ -375,12 +400,112 @@ def write_vo():
     print(f"wrote {OUT_VO}: {os.path.getsize(OUT_VO)} bytes")
 
 
+def tum_inputs():
+    """(masks, gt_R, gt_t, stamps) of the TUM tree: the committed masks,
+    their own poses, 30 fps from t = 1000 s (the fixture's stamps)."""
+    import pop_up_slam_tpu  # noqa: F401  (full-f32 matmul)
+    from pop_up_slam_tpu.io import synthetic
+
+    masks = load_inputs()[0]
+    Rs, ts = synthetic.corridor_trajectory(masks.shape[0] + 1)
+    stamps = 1000.0 + np.arange(masks.shape[0]) / 30.0
+    return (masks, np.asarray(Rs[1:], np.float32),
+            np.asarray(ts[1:], np.float32), stamps)
+
+
+def write_tum():
+    import contextlib
+    import io
+    import json
+    import tempfile
+
+    import jax
+
+    from pop_up_slam_tpu import cli as jcli
+    from pop_up_slam_tpu.config import get_config
+    from pop_up_slam_tpu.factors.graph import linearize
+    from pop_up_slam_tpu.pipeline.slam import _build_factors
+    from pop_up_slam_tpu.pipeline.smoothing import (
+        TrajectoryRecorder, smooth_trajectory)
+    from pop_up_slam_tpu.pipeline import slam_init
+    from pop_up_slam_tpu.runners.tum_runner import (
+        _snapshot, run_tum_sequence)
+    from pop_up_slam_tpu.solver import recover_marginals
+    from pop_up_slam_tpu.utils.checkpoint import load_state
+    from pop_up_slam_tpu_torch.io.tum_fixture import write_tum_tree
+
+    masks, gt_R, gt_t, stamps = tum_inputs()
+    fx, fy, cx, cy = TUM_INTRINSICS
+    popups = _record_pop_ups()
+    with tempfile.TemporaryDirectory() as root:
+        write_tum_tree(os.path.join(root, "seq"), masks, gt_R, gt_t, stamps)
+        ck = os.path.join(root, "ck.npz")
+        cfg = get_config("tum_fr3", sequence_dir=os.path.join(root, "seq"),
+                         fx=fx, fy=fy, cx=cx, cy=cy, height=480, width=640,
+                         checkpoint_path=ck)
+        # the fused GN body, as the reference runs on its accelerator and
+        # the port on the GPU (K1); "auto" on the CPU is the per-op solve
+        cfg = cfg._replace(slam=cfg.slam._replace(fused="on"))
+        t_start = time.perf_counter()
+        summary = run_tum_sequence(cfg, odometry="gt_perturb", smooth=True)
+        jax.effects_barrier()
+        print(f"tum run: {time.perf_counter() - t_start:.1f} s "
+              f"{json.dumps(summary)}")
+        scfg = cfg.slam
+        like = _snapshot(slam_init(scfg, gt_R[0], gt_t[0]), [gt_R[0]],
+                         [gt_t[0]], (np.eye(3), np.zeros(3)),
+                         TrajectoryRecorder(scfg, gt_R[0], gt_t[0]))
+        snap, meta = load_state(ck, like)
+    assert int(meta["next_k"]) == masks.shape[0]
+    state = snap["state"]
+    rec = TrajectoryRecorder.restore(scfg, snap["recorder"])
+    kf_R, kf_t, _ = smooth_trajectory(rec, state, scfg, iters=8,
+                                      damping=scfg.damping)
+    marg = recover_marginals(linearize(state.window,
+                                       _build_factors(state, scfg)),
+                             state.window)
+    n = masks.shape[0]
+    out = dict(
+        gt_R=gt_R, gt_t=gt_t, stamps=stamps,
+        est_R=np.asarray(snap["est_R"], np.float32),
+        est_t=np.asarray(snap["est_t"], np.float32),
+        frame_kf=np.asarray(rec.frame_kf, np.int32),
+        n_kf=np.asarray(state.n_kf, np.int32),
+        n_overflow=np.asarray(state.n_overflow, np.int32),
+        kf_R=np.asarray(kf_R, np.float32), kf_t=np.asarray(kf_t, np.float32),
+        pose_cov=np.asarray(marg.pose_cov, np.float32),
+        plane_cov=np.asarray(marg.plane_cov, np.float32),
+    )
+    for k in ("ate_rmse_m", "ate_filter_rmse_m", "pose_trans_std_m",
+              "pose_rot_std_rad"):
+        out[k] = np.asarray(summary[k], np.float64)
+    out.update({f"rec.{k}": np.asarray(v)
+                for k, v in rec.snapshot().items()})
+    out.update(_flatten("state", [jax.tree.map(np.asarray, state)]))
+    out.update(_pop_up_keys(popups, n - 1))
+    assert out["est_t"].shape == (n, 3) and out["frame_kf"].shape == (n - 1,)
+    assert int(out["n_kf"]) == int(summary["n_keyframes"]) == rec.n_kf
+    for k in ("est_t", "kf_t", "pose_cov", "plane_cov"):
+        assert np.isfinite(out[k]).all(), k
+    # the popup_demo entry point (its summary as the CLI prints it)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert jcli.main(["run", "--config", "popup_demo"]) == 0
+    demo = json.loads(buf.getvalue())
+    for k in ("n_wall_planes", "depth_median_rel_err", "depth_p95_rel_err"):
+        out[f"popup_demo_{k}"] = np.asarray(demo[k])
+    np.savez_compressed(OUT_TUM, **out)
+    print(f"wrote {OUT_TUM}: {os.path.getsize(OUT_TUM)} bytes; n_kf="
+          f"{int(out['n_kf'])} smoothed ATE {summary['ate_rmse_m']} "
+          f"filter {summary['ate_filter_rmse_m']} popup_demo {demo}")
+
+
 def main(argv):
-    which = set(argv) or {"gn", "solvers", "vo"}
-    unknown = which - {"gn", "solvers", "vo"}
+    which = set(argv) or {"gn", "solvers", "vo", "tum"}
+    unknown = which - {"gn", "solvers", "vo", "tum"}
     if unknown:
         raise SystemExit(f"unknown reference(s) {sorted(unknown)}; "
-                         "choose from gn, solvers, vo")
+                         "choose from gn, solvers, vo, tum")
     os.makedirs(DATA, exist_ok=True)
     if "gn" in which:
         write_gn()
@@ -388,6 +513,8 @@ def main(argv):
         write_solvers()
     if "vo" in which:
         write_vo()
+    if "tum" in which:
+        write_tum()
 
 
 if __name__ == "__main__":

@@ -237,3 +237,39 @@ def to_jax(cls, d):
     import jax.numpy as jnp
 
     return cls(**{k: jnp.asarray(v) for k, v in d.items()})
+
+
+def ground_mask_ties(rgb8: np.ndarray, band: float) -> np.ndarray:
+    """The pixels of an 8-bit RGB frame (H, W, 3) where two f32
+    evaluations of ``classical_ground_mask`` may decide differently: its
+    model evaluated in f64 puts the pixel's squared Mahalanobis distance
+    within ``band`` of the threshold 9 (a tie), or a tie lies among the
+    three pixels below it (the column cleanup reads those).  Raises if the
+    seed/top separation test itself is within ``band`` of its threshold."""
+    rgb = rgb8.astype(np.float64) / 255.0
+    h, w, _ = rgb.shape
+    rows = max(int(h * 0.12), 4)
+
+    def fit(pix, wt):
+        ws = max(wt.sum(), 1.0)
+        mu = (pix * wt[:, None]).sum(0) / ws
+        c = (pix - mu) * np.sqrt(wt)[:, None]
+        return mu, np.linalg.inv(c.T @ c / ws + 1e-4 * np.eye(3))
+
+    def dist(mu, prec):
+        d = rgb - mu
+        return np.einsum("hwi,ij,hwj->hw", d, prec, d)
+
+    seed = rgb[h - rows:, w // 4:(3 * w) // 4].reshape(-1, 3)
+    mu, prec = fit(seed, np.ones(len(seed)))
+    inlier = (dist(mu, prec) < 9.0) & (np.arange(h)[:, None] >= h // 2)
+    mu, prec = fit(rgb.reshape(-1, 3), inlier.reshape(-1).astype(float))
+    top = rgb[:rows].reshape(-1, 3)
+    dmu = mu - fit(top, np.ones(len(top)))[0]
+    if abs(dmu @ prec @ dmu - 4.0) <= band:
+        raise ValueError("the separation test is itself a tie")
+    near = np.abs(dist(mu, prec) - 9.0) < band
+    ties = near.copy()
+    for s in (1, 2, 3):
+        ties[:-s] |= near[s:]
+    return ties

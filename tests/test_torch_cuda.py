@@ -18,8 +18,8 @@ import pytest
 import torch
 
 from _torch_parity import (REPO, assert_close, ba_problem, corridor_K,
-                           corridor_inputs, cuda_device, indefinite,
-                           random_problem,
+                           corridor_inputs, cuda_device, ground_mask_ties,
+                           indefinite, random_problem,
                            random_system, spd_system)
 from pop_up_slam_tpu_torch import convert
 from pop_up_slam_tpu_torch.factors.robust import RobustConfig, RobustKernel
@@ -757,3 +757,112 @@ def test_vo_runners_on_the_card(cuda_device, fused):
         assert_close(R_g, R_c, 1e-3, what=f"R {i}")
         if fused:
             assert torch.isfinite(out_g[1]).all()
+
+
+# ---- the TUM slice: K5 at the smoother's shape, the segmenter, the
+# marginals ----
+
+@pytest.mark.parametrize("shape", [(64, 64, 576), (1024, 64, 64)])
+def test_plane_terms_kernel_at_the_smoothers_shape(cuda_device, shape):
+    """K5 over a whole keyframe trajectory: W = 64 keyframes with 9
+    factors each (F = 576, the smoother's layout: W = N rounded up to 8,
+    F = 9 N), and W = 1024, whose 54 KB of staged window takes the
+    dynamic shared memory opt-in above 48 KB.  The Jacobians at 1e-5
+    against the plain version; every residual row, as ``chip_smoke.py``
+    holds them at the smoother's shape, against the f64 closed form at
+    1e-5 / (1 - max |n_k|), capped at 5e-3: the Householder tangent basis
+    scales the f32 rounding of each row by that factor (above)."""
+    W, L, F = shape
+    tol = 1e-5
+    w, pf = random_problem(5, W, L, F)
+    pf["valid"][:5] = False
+    n_m = pf["pi_meas"][:, :3].astype(np.float64)
+    n_m /= np.linalg.norm(n_m, axis=1, keepdims=True)
+    gap = 1.0 - np.abs(n_m).max(1)
+    near = torch.as_tensor(pf["valid"], device=cuda_device)
+    window = convert.window_from_numpy(w, cuda_device)
+    factors = graph.PlaneFactors(*(torch.as_tensor(pf[k], device=cuda_device)
+                                   for k in graph.PlaneFactors._fields))
+    window64 = graph.Window(*(x.double() if x.is_floating_point() else x
+                              for x in window))
+    factors64 = factors._replace(pi_meas=factors.pi_meas.double(),
+                                 sqrt_info=factors.sqrt_info.double())
+    assert (plane_jacobians.smem_bytes(W, L) > 48 * 1024) == (W == 1024)
+    before = plane_jacobians.plane_terms.launches
+    out_k = plane_jacobians.plane_terms(window, factors)
+    assert plane_jacobians.plane_terms.launches == before + 1
+    out_p = plane_jacobians.plane_terms_analytic(window, factors)
+    r64 = plane_jacobians.plane_terms_analytic(window64, factors64)[0]
+    torch.cuda.synchronize()
+    for a, b, what in zip(out_k, out_p, ("r", "Jp", "Jl")):
+        assert torch.isfinite(a).all(), what
+        rows = ~near if what == "r" else slice(None)
+        assert_close(a[rows], b[rows], tol, rtol=tol, what=what)
+        assert not a[~factors.valid].any(), what
+    tol_r = torch.as_tensor(np.minimum(tol / gap, 5e-3),
+                            device=cuda_device)[near]
+    err = (out_k[0][near].double() - r64[near]).abs()
+    assert (err <= tol_r[:, None] * (1.0 + r64[near].abs())).all()
+
+
+def test_plane_terms_kernel_refuses_a_window_past_shared_memory(
+        cuda_device):
+    """A window too wide for one block's shared memory raises before any
+    launch."""
+    w, pf = random_problem(5, 5000, 64, 32)
+    window = convert.window_from_numpy(w, cuda_device)
+    factors = graph.PlaneFactors(*(torch.as_tensor(pf[k], device=cuda_device)
+                                   for k in graph.PlaneFactors._fields))
+    before = plane_jacobians.plane_terms.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        plane_jacobians.plane_terms(window, factors)
+    assert plane_jacobians.plane_terms.launches == before
+
+
+def test_classical_ground_mask_on_the_card(cuda_device):
+    """The segmenter on the card against the CPU on rendered 8-bit
+    frames: exact but at ties (``ground_mask_ties``, band 0.02), where
+    the two devices' f32 sums may decide differently."""
+    from pop_up_slam_tpu_torch.io import synthetic
+    from pop_up_slam_tpu_torch.models import classical_ground_mask
+
+    cpu = torch.device("cpu")
+    K = Intrinsics.create(320.0, 320.0, 320.0, 240.0, device=cpu)
+    world = synthetic.corridor_world(device=cpu)
+    R, t = synthetic.corridor_trajectory(12, sway=0.3, device=cpu)
+    gen = torch.Generator().manual_seed(0)
+    for i in (0, 5, 11):
+        labels, _ = synthetic.render_frame(K, R[i], t[i], world, 480, 640)
+        rgb8 = (synthetic.render_rgb(labels, generator=gen).numpy() * 255.0
+                + 0.5).astype(np.uint8)
+        out_c = classical_ground_mask(torch.as_tensor(rgb8))
+        out_g = classical_ground_mask(torch.as_tensor(rgb8,
+                                                      device=cuda_device))
+        assert out_g.device.type == "cuda" and out_g.dtype == torch.bool
+        tie = ground_mask_ties(rgb8, 0.02)
+        np.testing.assert_array_equal(out_g.cpu().numpy()[~tie],
+                                      out_c.numpy()[~tie])
+
+
+def test_recover_marginals_on_the_card(cuda_device):
+    """Marginals of a corridor BA problem on the card against the CPU,
+    within 1e-3 of each output's largest entry (two f32 inverses of the
+    reduced system); gauge-fixed and invalid blocks exactly zero."""
+    from pop_up_slam_tpu_torch.solver import recover_marginals
+
+    w, f = ba_problem(2, W=8, L=12)
+    w["lm_valid"][-2:] = False
+    f["planes"]["valid"] &= f["planes"]["lm_idx"] < 10
+    win_c = convert.window_from_numpy(w, "cpu")
+    lin_c = graph.linearize(win_c, convert.factors_from_numpy(f, "cpu"),
+                            analytic_planes=True)
+    win_g = convert.window_from_numpy(w, cuda_device)
+    lin_g = graph.Linearization(*(x.to(cuda_device) for x in lin_c))
+    out_c = recover_marginals(lin_c, win_c, 1e-6)
+    out_g = recover_marginals(lin_g, win_g, 1e-6)
+    for a, b in zip(out_g, out_c):
+        assert torch.isfinite(a).all()
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0.0,
+                                   atol=1e-3 * float(b.abs().max()))
+    assert not out_g.pose_cov[0].any()
+    assert not out_g.plane_cov[-2:].any()

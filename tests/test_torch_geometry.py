@@ -163,14 +163,27 @@ def test_plane_transform_and_camera():
 
 def test_port_imports_without_jax():
     """The port imports in a process where ``import jax`` and the JAX
-    package both fail: every module, the monocular slice's included."""
+    package both fail: every module, the monocular and TUM slices'
+    included."""
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['pop_up_slam_tpu'] = None; "
             "import pop_up_slam_tpu_torch, pop_up_slam_tpu_torch.pipeline, "
             "pop_up_slam_tpu_torch.ops, pop_up_slam_tpu_torch.convert, "
             "pop_up_slam_tpu_torch.odometry, pop_up_slam_tpu_torch.fusion, "
             "pop_up_slam_tpu_torch.factors.graph, "
-            "pop_up_slam_tpu_torch.pipeline.offline; "
+            "pop_up_slam_tpu_torch.pipeline.offline, "
+            "pop_up_slam_tpu_torch.pipeline.smoothing, "
+            "pop_up_slam_tpu_torch.solver.covariance, "
+            "pop_up_slam_tpu_torch.evaluation.ate, "
+            "pop_up_slam_tpu_torch.utils.metrics, "
+            "pop_up_slam_tpu_torch.utils.checkpoint, "
+            "pop_up_slam_tpu_torch.io.png, pop_up_slam_tpu_torch.io.tum, "
+            "pop_up_slam_tpu_torch.io.synthetic, "
+            "pop_up_slam_tpu_torch.io.tum_fixture, "
+            "pop_up_slam_tpu_torch.models.segmentation, "
+            "pop_up_slam_tpu_torch.config, "
+            "pop_up_slam_tpu_torch.runners.tum_runner, "
+            "pop_up_slam_tpu_torch.cli; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
