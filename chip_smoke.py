@@ -84,7 +84,26 @@
    ``popup_demo`` path (``cli`` at 480x640: K2 once, the wall count the
    reference CLI's); K5 held against its plain version at the
    smoother's shape (W = N rounded up to 8, F = 9 N).
-7. Prints the ``{"kernels": [...]}`` line (one row per kernel; K4's row
+7. Drives the slice of the batched and pipelined runners and the learned
+   segmenter (and, inside the TUM phase, the native loader):
+   ``batched`` (``run_sequence_batched`` over the 144 frames, chunks of
+   16: the pop-up of a chunk in one vmapped pass at dead-reckoned poses;
+   against ``corridor_ref_batched.npz`` as ``run_batched_path`` says: K1
+   144, the free run to its pop-up branch, each chunk from the
+   reference's state, the batched pop-up at the reference's poses on all
+   144 frames), ``pipelined`` (``run_pipelined``, the front end on a side
+   stream, ``stale_prediction=False``: sha256-equal to the sequential
+   frame loop twice, K1 144) and ``pipelined_stale`` (ATE within the
+   reference test's bound, K1 144), each with frames/s and launches a
+   frame beside the chunked runner's and the main path's; ``segnet`` (the
+   pretrained SegNetLite on four 480x640 renders: IoU > 0.9, its logits
+   against the CPU module's and flax's recorded ones, K2 once a frame
+   through ``pop_up`` and ``render_depth``); ``native`` (the TUM tree
+   through ``NativeSequence.stream``, equal to ``io/png.py``'s decode, and
+   the libpng-written fixtures with every row filter; decode ms a frame
+   of both codecs).  K5's device time at the smoother's shape, from the
+   profiler.
+8. Prints the ``{"kernels": [...]}`` line (one row per kernel; K4's row
    is lm24's n=144, its other timed sizes, which no path launches, are
    nested under ``other_n`` with 0 launches; K5's row also carries its
    time at the smoother's shape), the card line, and last
@@ -1297,6 +1316,7 @@ def run_path(torch, name, slam_mod, offline, se3, pp, run, counters, ref,
                                              np.nonzero(a_same_pts)[0],
                                              from_same_start=True)
     print(json.dumps(out))
+    PATH_LINES[name] = out
     assert held >= MIN_HELD * n, f"{name}: pop-up branch at frame {held}"
     assert float(t_frame[:held].max()) <= TRAJ_BOUND_M, (
         f"{name}: trajectory off the reference: "
@@ -1855,6 +1875,411 @@ def run_popup_demo_path(torch, pp, depth_render, counters, ref, gpu,
     return launches, float(diff.max())
 
 
+# ---- the slice of the batched and pipelined runners, the learned
+# segmenter and the native loader ----
+
+PATH_LINES = {}           # each run_path line by path name (frames/s)
+PROFILE_FRAMES = 16       # frames profiled for the launches a frame
+
+
+def launches_per_frame(torch, fn, frames: int) -> float:
+    """Device kernels launched per frame by ``fn()`` (which runs
+    ``frames`` frames and synchronizes), counted by the profiler: every
+    kernel of the run, PyTorch's and the port's, no copies or memsets."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    return len(kernels) / frames
+
+
+def k5_device_ms(torch, pj, window, pf, n: int = 50) -> float:
+    """K5's device time per call (ms), from the profiler: the kernel's own
+    span, summed over ``n`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pj.plane_terms(window, pf)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            pj.plane_terms(window, pf)
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and "plane_terms_kernel" in e.name]
+    assert len(spans) == n, len(spans)
+    return sum(spans) / n / 1e3
+
+
+def run_batched_path(torch, batched, offline, se3, convert, counters, ref,
+                     gpu, scfg, inputs, n):
+    """The ``batched`` path: ``run_sequence_batched`` over the ``n``
+    frames (chunks of 16, depth off), against ``corridor_ref_batched.npz``
+    (the JAX batched runner, fused GN body on).
+
+    Held: the free run (counters zeroed just before, read just after) to
+    its first pop-up branch (the first frame whose valid walls differ from
+    the reference's batched pop-up; not before MIN_HELD of the run) within
+    TRAJ_BOUND_M, its end state's ``n_kf``, ``n_overflow``, ``store.valid``
+    exactly, every keyframe decision the reference's (up to a KF_TIE
+    tie); K1 once a frame and no other kernel.  Anchored: each chunk from
+    the reference's recorded chunk-start state, every frame within
+    TRAJ_BOUND_M.  The batched pop-up at the reference's dead-reckoned
+    poses equal to the reference's (valid walls, column counts) on every
+    frame.  Reports frames/s and launches a frame beside the chunked
+    runner's (depth off) in this run.  Returns the free run's launches."""
+    masks_d, oR, ot, R0, t0, K, pcfg = inputs
+    pops, kf_log = [], []
+    pop_up, step = batched.batched_pop_up, batched.slam_step
+
+    def recording_pop_up(*args, **kwargs):
+        res, det = pop_up(*args, **kwargs)
+        pops.append((res.valid, res.n_points))
+        return res, det
+
+    from pop_up_slam_tpu_torch.pipeline import slam_init
+
+    def run(frames):
+        st = slam_init(scfg, R0, t0, device=masks_d.device)
+        out = batched.run_sequence_batched(st, masks_d[:frames],
+                                           oR[:frames], ot[:frames], K,
+                                           pcfg, scfg, chunk=16)
+        torch.cuda.synchronize()
+        return out
+
+    def chunked(frames):
+        st = slam_init(scfg, R0, t0, device=masks_d.device)
+        out = offline.run_sequence_chunked(st, masks_d[:frames],
+                                           oR[:frames], ot[:frames], K,
+                                           pcfg, scfg, chunk=16)
+        torch.cuda.synchronize()
+        return out
+
+    run(16)
+    batched.batched_pop_up = recording_pop_up
+    batched.slam_step = logging_slam_step(batched, kf_log)
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        t0_run = time.perf_counter()
+        state, (Rs, ts) = run(n)
+        dt = time.perf_counter() - t0_run
+        launches = {k: fn.launches for k, fn in counters.items()}
+    finally:
+        batched.batched_pop_up, batched.slam_step = pop_up, step
+    assert torch.isfinite(ts).all() and torch.isfinite(Rs).all()
+    # the chunked runner and the batched one again, in turns, on this card
+    fps = {"batched": [n / dt], "chunked_no_depth": []}
+    for name, fn in (("chunked_no_depth", chunked), ("batched", run),
+                     ("chunked_no_depth", chunked)):
+        t0_run = time.perf_counter()
+        fn(n)
+        fps[name].append(n / (time.perf_counter() - t0_run))
+    per_frame = {
+        "batched": launches_per_frame(torch, lambda: run(PROFILE_FRAMES),
+                                      PROFILE_FRAMES),
+        "chunked_no_depth": launches_per_frame(
+            torch, lambda: chunked(PROFILE_FRAMES), PROFILE_FRAMES)}
+
+    valid = torch.cat([v for v, _ in pops]).cpu().numpy()
+    same = (valid == ref["popup_valid"][:n]).all(-1)
+    held = _first_false(same)
+    t_err = np.abs(ts.cpu().numpy() - ref["t"][:n]).max(-1)
+    discrete = {
+        "n_kf": int(state.n_kf) == int(ref["n_kf"]),
+        "n_overflow": int(state.n_overflow) == int(ref["n_overflow"]),
+        "store_valid": bool((state.store.valid.cpu().numpy()
+                             == ref["store_valid"]).all())}
+    n_kf = ref["frame_n_kf"][:n]
+    ref_kf = n_kf > np.append(ref["chunk.n_kf"][0], n_kf[:-1])
+    kf = hold_keyframes(*keyframe_decisions(torch, se3, kf_log, scfg),
+                        ref_kf)
+    # each chunk from the reference's state at its start
+    run_chunk = batched.make_batched_runner(K, pcfg, scfg)
+    t_a = []
+    for c in range(0, n, 16):
+        st = convert.slam_state_from_numpy(_tree(ref, "chunk.", c // 16),
+                                           masks_d.device)
+        st, (_, t_c) = run_chunk(st, masks_d[c:c + 16],
+                                 torch.as_tensor(oR[c:c + 16],
+                                                 device=masks_d.device),
+                                 torch.as_tensor(ot[c:c + 16],
+                                                 device=masks_d.device))
+        t_a.append(t_c)
+    anchored = np.abs(torch.cat(t_a).cpu().numpy() - ref["t"][:n]).max(-1)
+    # the batched pop-up at the reference's dead-reckoned poses
+    differ = []
+    for c in range(0, n, 16):
+        res, _ = batched.batched_pop_up(
+            K, masks_d[c:c + 16],
+            torch.as_tensor(ref["dr_R"][c:c + 16], device=masks_d.device),
+            torch.as_tensor(ref["dr_t"][c:c + 16], device=masks_d.device),
+            pcfg, scfg.max_det)
+        same_c = ((res.valid.cpu().numpy() == ref["popup_valid"][c:c + 16])
+                  & (res.n_points.cpu().numpy()
+                     == ref["popup_n_points"][c:c + 16])).all(-1)
+        differ += [c + int(i) for i in np.nonzero(~same_c)[0]]
+    out = {"path": "batched", "frames": n, "chunk": 16, "card": gpu,
+           "launches": launches, "frames_per_s": fps,
+           "launches_per_frame": per_frame,
+           "main_path_frames_per_s": PATH_LINES["gn"]["frames_per_s"],
+           "traj_bound_m": TRAJ_BOUND_M, "frames_held": held,
+           "traj_held_max_abs_err_m": float(t_err[:held].max()),
+           "traj_max_abs_err_m": float(t_err.max()),
+           "discrete_match": discrete, "keyframe_decisions": kf,
+           "anchored_traj_max_abs_err_m": float(anchored.max()),
+           "popup_at_reference_poses_differ": differ,
+           "traj_abs_err_m_per_frame": t_err.tolist()}
+    print(json.dumps(out))
+    assert held >= MIN_HELD * n, f"batched: pop-up branch at frame {held}"
+    assert float(t_err[:held].max()) <= TRAJ_BOUND_M, out[
+        "traj_held_max_abs_err_m"]
+    assert all(discrete.values()), discrete
+    assert not kf["differ_not_ties"], kf
+    assert float(anchored.max()) <= TRAJ_BOUND_M, float(anchored.max())
+    assert not differ, f"batched pop-up parts at frames {differ}"
+    return launches
+
+
+def run_pipelined_paths(torch, pipelined, offline, ate_rmse, synthetic,
+                        counters, gpu, scfg, inputs, n):
+    """The ``pipelined`` (``stale_prediction=False``) and
+    ``pipelined_stale`` paths over the ``n`` frames: the front end on a
+    side stream.  Held: the non-stale run's poses equal bit for bit
+    (sha256) to the sequential frame loop (``offline.make_frame_fn``) on
+    the card, twice, K1 once a frame; the stale run's poses finite, its
+    ATE against the ground truth (the masks' own poses) below max(2
+    ATE_seq, 0.05 m) (``tests/test_pipelined.py:82``), its ``n_kf`` and
+    K1's launches the sequential run's.  Returns both runs' launches."""
+    from pop_up_slam_tpu_torch.pipeline import slam_init
+
+    masks_d, oR, ot, R0, t0, K, pcfg = inputs
+    dev = masks_d.device
+    oR_d = torch.as_tensor(oR, device=dev)
+    ot_d = torch.as_tensor(ot, device=dev)
+    # the masks' own poses (scripts/gen_bench_inputs.py rendered frame i
+    # at pose i + 1 of the walk)
+    gt_t = synthetic.corridor_trajectory(masks_d.shape[0] + 1,
+                                         device="cpu")[1][1:n + 1]
+
+    def frames(k):
+        return ((masks_d[i], oR_d[i], ot_d[i]) for i in range(k))
+
+    def sequential(k):
+        frame = offline.make_frame_fn(K, pcfg, scfg)
+        st = slam_init(scfg, R0, t0, device=dev)
+        Rs, ts = [], []
+        for i in range(k):
+            st, (R, t) = frame(st, (masks_d[i], oR_d[i], ot_d[i]))
+            Rs.append(R)
+            ts.append(t)
+        torch.cuda.synchronize()
+        return st, torch.stack(Rs), torch.stack(ts)
+
+    def piped(k, stale):
+        st = slam_init(scfg, R0, t0, device=dev)
+        poses = list(pipelined.run_pipelined(st, frames(k), K, pcfg, scfg,
+                                             stale_prediction=stale))
+        torch.cuda.synchronize()
+        return (torch.stack([R for R, _ in poses]),
+                torch.stack([t for _, t in poses]))
+
+    piped(16, False)
+    piped(16, True)
+    seq_state, R_seq, t_seq = sequential(n)
+    sha_seq = sha256_of(R_seq, t_seq)
+    runs, launches, fps = [], {}, {}
+    for name, stale in (("pipelined", False), ("pipelined", False),
+                        ("pipelined_stale", True)):
+        for fn in counters.values():
+            fn.launches = 0
+        t0_run = time.perf_counter()
+        R, t = piped(n, stale)
+        fps.setdefault(name, []).append(n / (time.perf_counter() - t0_run))
+        launches[name] = {k: fn.launches for k, fn in counters.items()}
+        runs.append((R, t))
+    shas = [sha256_of(R, t) for R, t in runs[:2]]
+    R_st, t_st = runs[2]
+    ate_seq = ate_rmse(gt_t.numpy(), t_seq.cpu().numpy())[0]
+    ate_stale = ate_rmse(gt_t.numpy(), t_st.cpu().numpy())[0]
+    ate_bound = max(2.0 * ate_seq, 0.05)
+    t0_run = time.perf_counter()
+    sequential(n)
+    fps["sequential"] = [n / (time.perf_counter() - t0_run)]
+    per_frame = {
+        "pipelined_stale": launches_per_frame(
+            torch, lambda: piped(PROFILE_FRAMES, True), PROFILE_FRAMES),
+        "sequential": launches_per_frame(
+            torch, lambda: sequential(PROFILE_FRAMES), PROFILE_FRAMES)}
+    k1_seq = int(seq_state.n_kf) - 1
+    out = {"path": "pipelined", "frames": n, "card": gpu,
+           "sha256_sequential": sha_seq, "sha256_pipelined": shas,
+           "bit_equal": [s == sha_seq for s in shas],
+           "launches": launches, "frames_per_s": fps,
+           "launches_per_frame": per_frame,
+           "main_path_frames_per_s": PATH_LINES["gn"]["frames_per_s"],
+           "stale_ate_m": float(ate_stale), "sequential_ate_m":
+           float(ate_seq), "stale_ate_bound_m": ate_bound,
+           "stale_traj_max_abs_diff_m": float(
+               (t_st - t_seq).abs().max()),
+           "sequential_keyframes": k1_seq}
+    print(json.dumps(out))
+    assert all(out["bit_equal"]), out["bit_equal"]
+    for name in ("pipelined", "pipelined_stale"):
+        c = launches[name]
+        assert c["fused_gn_solve"] == k1_seq == n, (name, c, k1_seq)
+        for k in counters:
+            if k != "fused_gn_solve":
+                assert c[k] == 0, (name, c)
+    assert torch.isfinite(R_st).all() and torch.isfinite(t_st).all()
+    assert ate_stale < ate_bound, (ate_seq, ate_stale)
+    return launches["pipelined"], launches["pipelined_stale"]
+
+
+SEGNET_FRAMES = 4
+SEGNET_SEED = 8
+SEGNET_IOU = 0.9          # tests/test_models.py:109
+# the card's logits (cuDNN, bf16) against flax's recorded ones and the
+# CPU evaluation's: |d| <= SEGNET_TOL * (1 + |l|) (measured on the H100:
+# 5.3e-3 against the CPU, 1.3e-3 against flax, PERF.md); masks may differ
+# only where the CPU logit lies within SEGNET_MARGIN of the threshold,
+# ten times the largest difference that tolerance allows near it
+SEGNET_TOL = 1e-2
+SEGNET_MARGIN = 0.1
+
+
+def run_segnet_path(torch, seg, synthetic, pp, counters, ref, gpu,
+                    dev="cuda"):
+    """The ``segnet`` path: the pretrained SegNetLite on the card over
+    SEGNET_FRAMES synthetic 480x640 corridor renders (the port's renderer,
+    colour draws from a seeded ``torch.Generator``).  Held: IoU against
+    the renders' ground truth above SEGNET_IOU; the card's logits against
+    the same module on the CPU (f32 parameters, bf16 compute) and against
+    flax's logits recorded on two 64x96 frames, as SEGNET_TOL and
+    SEGNET_MARGIN say (the largest logit difference and the largest
+    |logit| where the masks differ are printed); each mask then through
+    ``pop_up`` and ``render_depth``: K2 once a frame.  Returns the
+    launches of the pop-up and depth loop."""
+    from pop_up_slam_tpu_torch.geometry.camera import Intrinsics
+
+    model, params, meta = seg.load_pretrained_segnet(device=dev)
+    K = Intrinsics.create(320.0, 320.0, 320.0, 240.0, device=dev)
+    world = synthetic.corridor_world(device=dev)
+    Rs, ts = synthetic.corridor_trajectory(SEGNET_FRAMES + 2, device=dev)
+    g = torch.Generator().manual_seed(SEGNET_SEED)
+    labels = torch.stack([
+        synthetic.render_frame(K, Rs[i + 1], ts[i + 1], world, 480, 640)[0]
+        for i in range(SEGNET_FRAMES)])
+    rgb = torch.stack([synthetic.render_rgb(lab, generator=g)
+                       for lab in labels])
+    gt = labels == synthetic.LABEL_GROUND
+    with torch.no_grad():
+        ms = (_time_ms(lambda: model(rgb), n=5, warm=2) / SEGNET_FRAMES
+              if dev == "cuda" else None)
+        logits = model(rgb)
+        cpu_model, _, _ = seg.load_pretrained_segnet(device="cpu")
+        t0_cpu = time.perf_counter()
+        logits_cpu = cpu_model(rgb.cpu())
+        cpu_ms = (time.perf_counter() - t0_cpu) * 1e3 / SEGNET_FRAMES
+        small = torch.as_tensor(ref["segnet_rgb8"], device=dev) / 255.0
+        logits_small = model(small.float()).cpu().numpy()
+    mask = logits > 0
+    assert torch.equal(mask, seg.predict_mask(model, params, rgb))
+    iou = [float((mask[i] & gt[i]).sum() / (mask[i] | gt[i]).sum())
+           for i in range(SEGNET_FRAMES)]
+    l_card, l_cpu = logits.cpu().numpy(), logits_cpu.numpy()
+    rel = np.abs(l_card - l_cpu) / (1 + np.abs(l_cpu))
+    differ = (l_card > 0) != (l_cpu > 0)
+    flax = ref["segnet_logits"]
+    rel_flax = np.abs(logits_small - flax) / (1 + np.abs(flax))
+    differ_flax = (logits_small > 0) != (flax > 0)
+    for fn in counters.values():
+        fn.launches = 0
+    depths = []
+    for i in range(SEGNET_FRAMES):
+        res = pp.pop_up(K, mask[i], Rs[i + 1], ts[i + 1], pp.PopupConfig())
+        depths.append(pp.render_depth(K, res, mask[i], Rs[i + 1], ts[i + 1]))
+    _sync(torch)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    depth = torch.stack(depths)
+    out = {"path": "segnet", "frames": SEGNET_FRAMES, "shape": [480, 640],
+           "card": gpu, "meta": meta, "iou": iou, "iou_gate": SEGNET_IOU,
+           "card_ms_per_frame": ms, "cpu_ms_per_frame": cpu_ms,
+           "vs_cpu_max_rel_diff": float(rel.max()),
+           "vs_cpu_max_abs_diff": float(np.abs(l_card - l_cpu).max()),
+           "vs_cpu_mask_pixels_differ": int(differ.sum()),
+           "vs_cpu_max_abs_logit_where_differ": float(
+               np.abs(l_cpu[differ]).max()) if differ.any() else 0.0,
+           "vs_flax_max_rel_diff": float(rel_flax.max()),
+           "vs_flax_max_abs_diff": float(np.abs(logits_small - flax).max()),
+           "vs_flax_mask_pixels_differ": int(differ_flax.sum()),
+           "tol_rel": SEGNET_TOL, "mask_margin": SEGNET_MARGIN,
+           "launches": launches}
+    print(json.dumps(out))
+    assert np.isfinite(l_card).all() and torch.isfinite(depth).all()
+    assert depth.shape == (SEGNET_FRAMES, 480, 640)
+    assert min(iou) > SEGNET_IOU, iou
+    assert rel.max() <= SEGNET_TOL and rel_flax.max() <= SEGNET_TOL, out
+    assert (np.abs(l_cpu[differ]) < SEGNET_MARGIN).all(), out
+    assert (np.abs(flax[differ_flax]) < SEGNET_MARGIN).all(), out
+    assert launches["depth_render"] == SEGNET_FRAMES, launches
+    assert sum(launches.values()) == SEGNET_FRAMES, launches
+    return launches
+
+
+def run_native_path(native_loader, png, tree, gpu):
+    """The ``native`` phase: the TUM tree of the ``tum`` path read through
+    ``NativeSequence.stream(num_threads=2)``, each frame's pixels equal to
+    ``io/png.py``'s decode of the same file; the committed libpng-written
+    fixtures (every row filter) decoded by both codecs equal to their
+    stored pixels.  Reports decode ms a frame of both codecs on each."""
+    data = os.path.join(REPO, "pop_up_slam_tpu_torch", "data")
+    with native_loader.NativeSequence(tree) as seq:
+        paths = [seq.rgb_path(i) for i in range(seq.num_rgb)]
+        t0 = time.perf_counter()
+        frames = [img for _, img in seq.stream(num_threads=2)]
+        stream_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+    t0 = time.perf_counter()
+    for p in paths:
+        native_loader.decode_png(p)
+    native_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+    t0 = time.perf_counter()
+    plain = [png.read_png(p) for p in paths]
+    plain_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+    tree_equal = len(frames) == len(plain) and all(
+        np.array_equal(a, b) for a, b in zip(frames, plain))
+    stored = np.load(os.path.join(data, "png_fixture_pixels.npz"))
+    fixtures = {}
+    for name in ("rgb", "gray16"):
+        p = os.path.join(data, f"png_fixture_{name}.png")
+        t0 = time.perf_counter()
+        a = native_loader.decode_png(p)
+        t_nat = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = png.read_png(p)
+        t_plain = time.perf_counter() - t0
+        fixtures[name] = {
+            "shape": list(a.shape), "dtype": str(a.dtype),
+            "row_filters": np.bincount(stored[f"{name}_filters"],
+                                       minlength=5).tolist(),
+            "native_equal": bool(np.array_equal(a, stored[name])),
+            "plain_equal": bool(np.array_equal(b, stored[name])),
+            "native_ms": t_nat * 1e3, "plain_ms": t_plain * 1e3}
+    out = {"path": "native", "card": gpu, "frames": len(paths),
+           "frame_shape": list(frames[0].shape), "tree_equal": tree_equal,
+           "stream_ms_per_frame": stream_ms,
+           "native_decode_ms_per_frame": native_ms,
+           "plain_decode_ms_per_frame": plain_ms, "fixtures": fixtures}
+    print(json.dumps(out))
+    assert tree_equal
+    for f in fixtures.values():
+        assert f["native_equal"] and f["plain_equal"], fixtures
+
+
 def _sync(torch):
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -1883,6 +2308,10 @@ def main() -> int:
     from pop_up_slam_tpu_torch.pipeline import slam as slam_mod
     from pop_up_slam_tpu_torch.popup import popup as pp
     from pop_up_slam_tpu_torch.solver import schur as solver_schur
+    from pop_up_slam_tpu_torch.evaluation import ate_rmse
+    from pop_up_slam_tpu_torch.io import native_loader, png, synthetic
+    from pop_up_slam_tpu_torch.models import segmentation
+    from pop_up_slam_tpu_torch.pipeline import batched, pipelined
 
     t_start = time.perf_counter()
     gpu = _gpu_line()
@@ -2014,16 +2443,39 @@ def main() -> int:
         t_ph = time.perf_counter()
         paths["tum_vo"] = run_tum_vo_path(torch, counters, gpu, root)
         phase_s["tum_vo_path"] = time.perf_counter() - t_ph
+        t_ph = time.perf_counter()
+        run_native_path(native_loader, png, os.path.join(root, "tum"), gpu)
+        phase_s["native"] = time.perf_counter() - t_ph
     k5_err = max(k5_err, hold_k5(torch, pj, "smoother", w_smooth,
                                  pf_smooth, band=NEAR_AXIS_SMOOTHER))
     k5_smooth_t = k5_timing(torch, pj, w_smooth, pf_smooth)
+    k5_smooth_t["device_ms"] = k5_device_ms(torch, pj, w_smooth, pf_smooth)
     t_ph = time.perf_counter()
     paths["popup_demo"], k2_demo_err = run_popup_demo_path(
         torch, pp, depth_render, counters, ref_tum, gpu)
     phase_s["popup_demo_path"] = time.perf_counter() - t_ph
     k2_err = max(k2_err, k2_demo_err)
 
-    # ---- 7. summary ----
+    # ---- 7. the batched and pipelined runners, the learned segmenter ----
+    ref_b = np.load(os.path.join(ref_dir, "corridor_ref_batched.npz"))
+    t_ph = time.perf_counter()
+    paths["batched"] = run_batched_path(torch, batched, offline, se3,
+                                        convert, counters, ref_b, gpu, scfg,
+                                        inputs, n)
+    phase_s["batched_path"] = time.perf_counter() - t_ph
+    c = paths["batched"]
+    assert c["fused_gn_solve"] == n and sum(c.values()) == n, c
+    t_ph = time.perf_counter()
+    paths["pipelined"], paths["pipelined_stale"] = run_pipelined_paths(
+        torch, pipelined, offline, ate_rmse, synthetic, counters, gpu, scfg,
+        inputs, n)
+    phase_s["pipelined_paths"] = time.perf_counter() - t_ph
+    t_ph = time.perf_counter()
+    paths["segnet"] = run_segnet_path(torch, segmentation, synthetic, pp,
+                                      counters, ref_b, gpu)
+    phase_s["segnet_path"] = time.perf_counter() - t_ph
+
+    # ---- 8. summary ----
     def row(name, counter, own_path, source, replaces, err, tm,
             on_path=True):
         b_ms, b_by = _bound(*tm["work"])
@@ -2070,7 +2522,8 @@ def main() -> int:
     kernels[-1]["smoother_shape"] = {
         "W": w_smooth.window_size, "F": int(pf_smooth.valid.shape[0]),
         "launches_tum": paths["tum"]["plane_terms"],
-        "ms": k5_smooth_t["ms"], "plain_ms": k5_smooth_t["plain_ms"],
+        "ms": k5_smooth_t["ms"], "device_ms": k5_smooth_t["device_ms"],
+        "plain_ms": k5_smooth_t["plain_ms"],
         "bound_ms": b_ms, "bound_by": b_by,
         "bytes": k5_smooth_t["work"][0],
         "operations": k5_smooth_t["work"][1]}

@@ -110,6 +110,22 @@ def depth_filter_from_numpy(x, device) -> DepthFilter:
     return _from(DepthFilter, x, device)
 
 
+def segnet_state_dict_from_flax(params) -> dict:
+    """A flax ``SegNetLite`` parameter tree as numpy arrays (``{"params":
+    {"Conv_k": {"kernel": (kh, kw, in, out), "bias": (out,)}}}``, the
+    ``"params"`` level optional) -> the port module's state dict on the
+    CPU (``convs.k.weight`` (out, in, kh, kw), ``convs.k.bias``)."""
+    params = params.get("params", params)
+    sd = {}
+    for name, leaf in params.items():
+        k = int(name.split("_")[1])
+        kernel = np.asarray(leaf["kernel"], np.float32)
+        sd[f"convs.{k}.weight"] = torch.tensor(kernel.transpose(3, 2, 0, 1))
+        sd[f"convs.{k}.bias"] = torch.tensor(np.asarray(leaf["bias"],
+                                                        np.float32))
+    return sd
+
+
 intrinsics_to_numpy = window_to_numpy = factors_to_numpy = _to
 landmark_store_to_numpy = slam_state_to_numpy = _to
 popup_planes_to_numpy = frame_detections_to_numpy = _to

@@ -1,7 +1,9 @@
 """TUM RGB-D dataset IO: sequence loading, association, trajectory IO.
 
 Port of ``pop_up_slam_tpu/io/tum.py`` (numpy only): plain files, no
-middleware.  PNGs are decoded by the port's own reader (:mod:`.png`).
+middleware.  PNGs are decoded by the port's native codec
+(:mod:`.native_loader`, zlib only), as the reference's ``load_image``
+routes to its native runtime.
 
 A TUM sequence directory contains ``rgb.txt`` / ``depth.txt`` /
 ``groundtruth.txt`` index files (lines: ``timestamp path...`` or
@@ -23,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 
 from ..evaluation.ate import associate
-from .png import read_png
+from . import native_loader
 
 # Standard TUM freiburg intrinsics (ROS default calibration).
 FR1_INTRINSICS = (517.3, 516.5, 318.6, 255.3)
@@ -94,7 +96,7 @@ def load_sequence(root: str) -> TumSequence:
 def load_image(seq: TumSequence, rel_path: str) -> np.ndarray:
     """Decode one frame: (H, W, 3) uint8 RGB, (H, W) uint8 gray or
     (H, W) uint16 depth."""
-    return read_png(os.path.join(seq.root, rel_path))
+    return native_loader.decode_png(os.path.join(seq.root, rel_path))
 
 
 def load_depth(seq: TumSequence, rel_path: str) -> np.ndarray:

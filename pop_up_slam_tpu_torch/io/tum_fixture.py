@@ -17,8 +17,8 @@ The layout is TUM's::
       seg/<stamp>.png       (optional precomputed ground masks, 0/255)
 
 so ``io.tum.load_sequence`` and ``runners.tum_runner.run_tum_sequence``
-run the real-data code path end to end.  PNGs go through the port's own
-codec (:mod:`.png`).
+run the real-data code path end to end.  PNGs go through the port's
+native codec (:mod:`.native_loader`), as the reference's writer does.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import os
 import numpy as np
 import torch
 
-from .png import write_png
+from .native_loader import encode_png as write_png
 from .tum import rotmat_to_quat_np
 
 # the flat colors of a frame written without rgb (render_rgb's floor and

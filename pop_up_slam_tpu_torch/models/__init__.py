@@ -1,1 +1,6 @@
-from .segmentation import classical_ground_mask  # noqa: F401
+from .segmentation import (  # noqa: F401
+    SegNetLite,
+    classical_ground_mask,
+    load_pretrained_segnet,
+    predict_mask,
+)

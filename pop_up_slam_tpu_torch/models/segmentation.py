@@ -1,14 +1,32 @@
-"""Ground/wall segmentation: the classical floor-color model.
+"""Ground/wall segmentation: the classical floor-color model and the
+learned SegNet-lite.
 
-Port of ``classical_ground_mask`` from
-``pop_up_slam_tpu/models/segmentation.py``.  The learned segmenter
-(``SegNetLite``) and its loader are not ported yet (``ROADMAP.md``
-queue 1).
+Port of ``pop_up_slam_tpu/models/segmentation.py``:
+
+1. :func:`classical_ground_mask` — a floor-color Gaussian model seeded
+   from the bottom image rows, with a column cleanup.
+2. :class:`SegNetLite` — the small encoder-decoder, f32 parameters and
+   bf16 compute, with :func:`predict_mask` and
+   :func:`load_pretrained_segnet`, which reads the committed
+   synthetic-trained checkpoint ``models_data/segnet_lite.npz``.  Its
+   training (``create_train_state``, ``train_step``) is not ported.
 """
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
+
+import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .._device import resolve_device
+
+# the committed checkpoint, found from this package's own location
+DEFAULT_CHECKPOINT = (Path(__file__).resolve().parent.parent.parent
+                      / "models_data" / "segnet_lite.npz")
 
 
 def classical_ground_mask(
@@ -73,3 +91,99 @@ def classical_ground_mask(
     below = torch.cat([torch.full_like(last[:1], -1), last[:-1]])
     keep = up & (k - 1 - below < min_col_run)
     return torch.flip(keep, dims=(0,))
+
+
+# ---------------------------------------------------------------------------
+# SegNet-lite
+# ---------------------------------------------------------------------------
+
+
+class SegNetLite(nn.Module):
+    """Small encoder-decoder for binary ground segmentation.
+
+    The reference's flax module layer for layer: per feature width an
+    encoder of two 3x3 'SAME' convolutions with ReLU and a 2x2/2 max-pool;
+    per width in reverse a nearest 2x upsampling, the concatenation
+    ``[x, skip]`` and one 3x3 convolution with ReLU; a final 1x1
+    convolution to one logit.  Parameters are f32 (``convs[k]`` is
+    flax's ``Conv_k``); every convolution but the last computes in bf16
+    (the bias added to the rounded product, as flax adds it), the last in
+    f32.  Fully convolutional: any height and width divisible by
+    ``2 ** len(features)``.
+    """
+
+    def __init__(self, features: tuple = (16, 32, 64),
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.features = tuple(features)
+        self.dtype = dtype
+        convs, c = [], 3
+        for f in self.features:
+            convs += [nn.Conv2d(c, f, 3, padding=1), nn.Conv2d(f, f, 3,
+                                                              padding=1)]
+            c = f
+        for f in reversed(self.features):   # input: [upsampled x, skip]
+            convs.append(nn.Conv2d(c + f, f, 3, padding=1))
+            c = f
+        convs.append(nn.Conv2d(c, 1, 1))
+        self.convs = nn.ModuleList(convs)
+
+    def _conv(self, k: int, x: torch.Tensor, dtype) -> torch.Tensor:
+        conv = self.convs[k]
+        y = F.conv2d(x.to(dtype), conv.weight.to(dtype), None,
+                     padding=conv.padding)
+        return y + conv.bias.to(dtype)[:, None, None]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, H, W, 3) float in [0, 1] -> logits (B, H, W) f32."""
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        skips, k = [], 0
+        for _ in self.features:
+            for _ in range(2):
+                x = torch.relu(self._conv(k, x, self.dtype))
+                k += 1
+            skips.append(x)
+            x = F.max_pool2d(x, 2, 2)
+        for skip in reversed(skips):
+            x = F.interpolate(x, scale_factor=2, mode="nearest")
+            x = torch.cat([x, skip], dim=1)
+            x = torch.relu(self._conv(k, x, self.dtype))
+            k += 1
+        return self._conv(k, x, torch.float32)[:, 0]
+
+
+def predict_mask(model: SegNetLite, params, rgb: torch.Tensor,
+                 thresh: float = 0.0) -> torch.Tensor:
+    """rgb (B, H, W, 3) -> (B, H, W) bool ground mask.  ``params`` is a
+    state dict for ``model`` (``load_pretrained_segnet``'s)."""
+    with torch.no_grad():
+        return torch.func.functional_call(model, params, (rgb,)) > thresh
+
+
+def load_pretrained_segnet(path: str | None = None, device=None):
+    """Load the committed synthetic-trained SegNetLite checkpoint
+    (``models_data/segnet_lite.npz``, written by the reference's
+    ``scripts/train_segnet.py``: flax's leaves ``leaf_0..leaf_19`` in
+    sorted-key order, bias before kernel per ``Conv_k``, and JSON
+    ``__meta__``).  The network is fully convolutional, so it runs at any
+    resolution; the checkpoint was trained at 96x128 synthetic renders.
+    Returns (model, params, meta) on ``device``: the module carries the
+    parameters, ``params`` is its state dict."""
+    from ..convert import segnet_state_dict_from_flax
+
+    path = Path(path) if path is not None else DEFAULT_CHECKPOINT
+    if not path.exists():
+        raise FileNotFoundError(f"SegNetLite checkpoint not found: {path}")
+    dev = resolve_device(device)
+    with np.load(path) as data:
+        meta = (json.loads(bytes(data["__meta__"]).decode())
+                if "__meta__" in data else {})
+        model = SegNetLite()
+        n = 2 * len(model.convs)
+        leaves = [data[f"leaf_{i}"] for i in range(n)]
+    tree = {"params": {f"Conv_{k}": {"bias": leaves[2 * k],
+                                     "kernel": leaves[2 * k + 1]}
+                       for k in range(n // 2)}}
+    model.load_state_dict(segnet_state_dict_from_flax(tree))
+    model = model.to(dev).eval()
+    return model, dict(model.state_dict()), meta

@@ -1,3 +1,8 @@
+from .batched import (  # noqa: F401
+    dead_reckon,
+    make_batched_runner,
+    run_sequence_batched,
+)
 from .offline import (  # noqa: F401
     FusedVOState,
     VOState,
@@ -22,3 +27,4 @@ from .slam import (  # noqa: F401
     slam_init,
     slam_step,
 )
+from .pipelined import make_stages, run_pipelined  # noqa: F401

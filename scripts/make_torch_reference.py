@@ -77,9 +77,30 @@ calls it), ``ate_rmse_m``, ``ate_filter_rmse_m``, ``pose_trans_std_m``,
 CLI's ``popup_demo`` summary (``n_wall_planes``, the depth's median and
 p95 relative error).
 
-Run from the repository root (no argument writes all four files):
+``batched`` (``pop_up_slam_tpu_torch/data/corridor_ref_batched.npz``):
+the JAX ``run_sequence_batched`` over the 144 frames at the ``gn``
+configuration (fused GN body on), chunks of 16.  Keys: ``R`` / ``t`` per
+frame, the end state's ``n_kf``, ``n_overflow``, ``store_valid``,
+``frame_n_kf`` (``n_kf`` after each frame: its keyframe decisions),
+``chunk.*`` (the ``SlamState`` each chunk starts from, one key per leaf,
+stacked over the chunks), ``dr_R`` / ``dr_t`` (each frame's dead-reckoned
+pop-up pose), ``popup_valid`` / ``popup_n_points`` (each frame's batched
+pop-up, recorded inside the runner's ``vmap``), and the pretrained
+SegNetLite's logits on two 64x96 synthetic frames: ``segnet_rgb8`` (the
+frames as uint8; the network reads ``rgb8 / 255``) and ``segnet_logits``
+(flax's ``apply`` on the CPU), and ``problem.*``: the reference's
+``build_corridor_problem`` at ``PROBLEM_KW`` (``problem.draws.*``: its
+``jax.random`` draws, ``problem.window.*`` / ``problem.factors.*``: its
+output).  It also writes two PNG fixtures with the
+reference's libpng codec (``native/``, adaptive row filters):
+``png_fixture_rgb.png`` (120x160 RGB) and ``png_fixture_gray16.png``
+(120x160 16-bit gray), and their pixels into
+``png_fixture_pixels.npz`` (``rgb``, ``gray16``, and ``*_filters``: the
+filter byte of each row).
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_reference.py [gn] [solvers] [vo] [tum]
+Run from the repository root (no argument writes every file):
+
+    JAX_PLATFORMS=cpu python scripts/make_torch_reference.py [gn] [solvers] [vo] [tum] [batched]
 """
 
 from __future__ import annotations
@@ -98,8 +119,12 @@ OUT = os.path.join(DATA, "corridor_ref.npz")
 OUT_SOLVERS = os.path.join(DATA, "corridor_ref_solvers.npz")
 OUT_VO = os.path.join(DATA, "corridor_ref_vo.npz")
 OUT_TUM = os.path.join(DATA, "corridor_ref_tum.npz")
+OUT_BATCHED = os.path.join(DATA, "corridor_ref_batched.npz")
+OUT_PNG = os.path.join(DATA, "png_fixture_pixels.npz")
 TUM_INTRINSICS = (320.0, 320.0, 320.0, 240.0)
 VO_GRID = 16      # stride of the recorded fused-depth grid
+PROBLEM_KW = dict(noise_odom_t=0.05, noise_odom_r=0.02, noise_plane=0.01,
+                  seed=3, lm_perturb=0.05)
 
 # name -> (SlamConfig overrides, frames)
 SOLVER_RUNS = {
@@ -500,12 +525,202 @@ def write_tum():
           f"filter {summary['ate_filter_rmse_m']} popup_demo {demo}")
 
 
+def _segnet_frames():
+    """Two 64x96 synthetic corridor frames (uint8) and the pretrained
+    SegNetLite's logits on them (flax's ``apply``, jitted, on the CPU)."""
+    import jax
+
+    from pop_up_slam_tpu.geometry.camera import Intrinsics
+    from pop_up_slam_tpu.io import synthetic
+    from pop_up_slam_tpu.models import load_pretrained_segnet
+
+    H, W = 64, 96
+    K = Intrinsics.create(48.0, 48.0, 48.0, 32.0)
+    world = synthetic.corridor_world()
+    R, t = synthetic.corridor_trajectory(8)
+    labels, _ = jax.vmap(lambda R_, t_: synthetic.render_frame(
+        K, R_, t_, world, H, W))(R[2:4], t[2:4])
+    rgb = jax.vmap(synthetic.render_rgb)(
+        labels, jax.random.split(jax.random.PRNGKey(11), 2))
+    rgb8 = np.round(np.asarray(rgb) * 255.0).astype(np.uint8)
+    model, params, _ = load_pretrained_segnet()
+    logits = jax.jit(model.apply)(params, rgb8.astype(np.float32) / 255.0)
+    return rgb8, np.asarray(logits, np.float32)
+
+
+def _problem():
+    """The reference's ``build_corridor_problem`` at ``PROBLEM_KW`` and its
+    draws (the keys split as the builder splits them; default window 6
+    and 8 walls)."""
+    import jax
+
+    from pop_up_slam_tpu.io.problems import build_corridor_problem
+
+    W, M = 6, 8
+    k_odom, k_obs, k_lm = jax.random.split(
+        jax.random.PRNGKey(PROBLEM_KW["seed"]), 3)
+    draws = dict(
+        odom=np.asarray(jax.random.normal(k_odom, (W - 1, 6))),
+        obs=np.stack([np.asarray(jax.random.normal(k, (M, 3)))
+                      for k in jax.random.split(k_obs, W)]),
+        lm=np.asarray(jax.random.normal(k_lm, (M + 1, 3))))
+    window, factors, _, _ = build_corridor_problem(**PROBLEM_KW)
+    out = {f"problem.draws.{k}": v for k, v in draws.items()}
+    out.update(_flatten("problem.window",
+                        [jax.tree.map(np.asarray, window)]))
+    out.update(_flatten("problem.factors",
+                        [jax.tree.map(np.asarray, factors)]))
+    return out
+
+
+def _row_filters(path):
+    """The filter byte of each row of a non-interlaced PNG."""
+    import zlib
+
+    from pop_up_slam_tpu_torch.io import png
+
+    data = open(path, "rb").read()
+    idat, hdr = b"", None
+    for kind, body in png._chunks(data):
+        if kind == b"IHDR":
+            hdr = body
+        elif kind == b"IDAT":
+            idat += body
+    w, h = int.from_bytes(hdr[:4], "big"), int.from_bytes(hdr[4:8], "big")
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    return raw.reshape(h, -1)[:, 0].copy()
+
+
+def write_png_fixtures():
+    """The filtered PNG fixtures, written by the reference's libpng codec
+    (adaptive filters).  Each image is five bands of 24 rows, made so
+    that libpng's heuristic picks every filter type: small signed noise
+    around 0 (None), a ramp along the row (Sub), repeated rows (Up), a
+    ramp both ways with noise (Average, Paeth) and noise."""
+    from pop_up_slam_tpu.io import native_loader as jnl
+
+    assert jnl.available(), jnl.load_error()
+    rng = np.random.default_rng(8)
+    H, W = 120, 160
+    v, u = np.mgrid[0:H, 0:W]
+    band = v // 24
+    base = np.select(
+        [band == 1, band == 2, band == 3],
+        [u * 1.5, np.sin(u / 9.0) * 60 + 100, (u + v) * 0.9],
+        default=rng.normal(128, 30, (H, W)))
+    small = rng.integers(-3, 4, (H, W, 3))       # None: bytes near 0 / 255
+    rgb = np.stack([base, base * 0.8 + 20, 255 - base], -1)
+    rgb = np.clip(rgb + rng.normal(0, 1.2, rgb.shape) * (band >= 3)[..., None],
+                  0, 255).astype(np.int64)
+    rgb = np.where((band == 0)[..., None], small % 256, rgb).astype(np.uint8)
+    gray16 = np.clip(base * 250.0 + rng.normal(0, 40, (H, W)) * (band >= 3),
+                     0, 65535).astype(np.int64)
+    gray16 = np.where(band == 0, small[..., 0] % 65536,
+                      gray16).astype(np.uint16)
+    out = {}
+    for name, img in (("rgb", rgb), ("gray16", gray16)):
+        path = os.path.join(DATA, f"png_fixture_{name}.png")
+        jnl.encode_png(path, img)
+        assert np.array_equal(jnl.decode_png(path), img)
+        out[name] = img
+        out[f"{name}_filters"] = _row_filters(path)
+        print(f"wrote {path}: {os.path.getsize(path)} bytes, row filters "
+              f"{np.bincount(out[name + '_filters'], minlength=5).tolist()}")
+    np.savez_compressed(OUT_PNG, **out)
+    print(f"wrote {OUT_PNG}: {os.path.getsize(OUT_PNG)} bytes")
+
+
+def write_batched():
+    """The JAX batched runner over the 144 frames (see above)."""
+    import jax
+
+    import pop_up_slam_tpu  # noqa: F401  (full-f32 matmul)
+    from pop_up_slam_tpu.geometry.camera import Intrinsics
+    from pop_up_slam_tpu.pipeline import batched as jbatched
+    from pop_up_slam_tpu.pipeline import SlamConfig, slam_init
+    from pop_up_slam_tpu.popup import popup as jpp
+
+    masks, oR, ot, R0, t0 = load_inputs()
+    n = masks.shape[0]
+    K = Intrinsics.create(320.0, 320.0, 320.0, 240.0)
+    pcfg = jpp.PopupConfig()
+    scfg = SlamConfig(max_det=pcfg.max_segments + 1, kf_trans=0.0,
+                      kf_rot=0.0, fused="on")
+    dr, pops = [], []
+    dead_reckon, pop_up = jbatched.dead_reckon, jpp.pop_up
+
+    def recording_dead_reckon(*args):
+        Rs, ts = dead_reckon(*args)
+        jax.debug.callback(lambda a, b: dr.append((np.asarray(a),
+                                                   np.asarray(b))),
+                           Rs, ts, ordered=True)
+        return Rs, ts
+
+    def recording_pop_up(K_, mask, R_wc, t_wc, *args, **kwargs):
+        # inside the runner's vmap: an ordered callback runs once per
+        # frame, in frame order (the pose is recorded too and checked
+        # against the dead reckoning)
+        res = pop_up(K_, mask, R_wc, t_wc, *args, **kwargs)
+        jax.debug.callback(
+            lambda *a: pops.append(tuple(np.asarray(x) for x in a)),
+            res.valid, res.n_points, R_wc, t_wc, ordered=True)
+        return res
+
+    def run():
+        state = slam_init(scfg, R0, t0)
+        t_start = time.perf_counter()
+        state, (Rs, ts) = jbatched.run_sequence_batched(
+            state, masks, oR, ot, K, pcfg, scfg, chunk=16, donate=False)
+        jax.block_until_ready(ts)
+        jax.effects_barrier()
+        print(f"batched runner, {n} frames: "
+              f"{time.perf_counter() - t_start:.1f} s (compile included)")
+        return state, np.asarray(Rs, np.float32), np.asarray(ts, np.float32)
+
+    _, R_plain, t_plain = run()     # the same program without recording
+    jbatched.dead_reckon, jpp.pop_up = recording_dead_reckon, recording_pop_up
+    states, undo = _record_states(jbatched, "slam_step")
+    try:
+        state, Rs, ts = run()
+    finally:
+        undo()
+        jbatched.dead_reckon, jpp.pop_up = dead_reckon, pop_up
+    # recording leaves the program's results as they were
+    assert np.array_equal(Rs, R_plain) and np.array_equal(ts, t_plain)
+    assert len(states) == n and len(pops) == n and len(dr) == n // 16
+    dr_R = np.concatenate([a for a, _ in dr]).astype(np.float32)
+    dr_t = np.concatenate([b for _, b in dr]).astype(np.float32)
+    assert np.array_equal(np.stack([p[2] for p in pops]), dr_R)
+    assert np.array_equal(np.stack([p[3] for p in pops]), dr_t)
+    frame_n_kf = np.append([int(s.n_kf) for s in states[1:]],
+                           int(state.n_kf)).astype(np.int32)
+    out = dict(
+        R=Rs, t=ts,
+        n_kf=np.asarray(state.n_kf, np.int32),
+        n_overflow=np.asarray(state.n_overflow, np.int32),
+        store_valid=np.asarray(state.store.valid, bool),
+        frame_n_kf=frame_n_kf, dr_R=dr_R, dr_t=dr_t,
+        popup_valid=np.stack([p[0] for p in pops]).astype(bool),
+        popup_n_points=np.stack([p[1] for p in pops]).astype(np.int32))
+    out.update(_flatten("chunk", states[::16]))
+    rgb8, logits = _segnet_frames()
+    out.update(segnet_rgb8=rgb8, segnet_logits=logits)
+    out.update(_problem())
+    assert np.isfinite(out["t"]).all() and np.isfinite(logits).all()
+    np.savez_compressed(OUT_BATCHED, **out)
+    print(f"wrote {OUT_BATCHED}: {os.path.getsize(OUT_BATCHED)} bytes; "
+          f"n_kf={int(out['n_kf'])} n_overflow={int(out['n_overflow'])} "
+          f"valid={int(out['store_valid'].sum())} t[-1]={out['t'][-1]}")
+    write_png_fixtures()
+
+
 def main(argv):
-    which = set(argv) or {"gn", "solvers", "vo", "tum"}
-    unknown = which - {"gn", "solvers", "vo", "tum"}
+    names = ("gn", "solvers", "vo", "tum", "batched")
+    which = set(argv) or set(names)
+    unknown = which - set(names)
     if unknown:
         raise SystemExit(f"unknown reference(s) {sorted(unknown)}; "
-                         "choose from gn, solvers, vo, tum")
+                         f"choose from {', '.join(names)}")
     os.makedirs(DATA, exist_ok=True)
     if "gn" in which:
         write_gn()
@@ -515,6 +730,8 @@ def main(argv):
         write_vo()
     if "tum" in which:
         write_tum()
+    if "batched" in which:
+        write_batched()
 
 
 if __name__ == "__main__":

@@ -32,6 +32,25 @@ def corridor_K(step: int = 1):
     return tuple(v / step for v in (320.0, 320.0, 320.0, 240.0))
 
 
+def port_corridor(n: int, sway: float = 0.0, H: int = 96, W: int = 128):
+    """``n`` poses down the synthetic corridor (the reference tests'
+    ``corridor_trajectory(n, sway)``), the ground masks seen from them at
+    HxW with focal length 64 (rendered by the port, whose renderer is held
+    against the reference's) and the odometry between them, as numpy."""
+    from pop_up_slam_tpu_torch.geometry import se3
+    from pop_up_slam_tpu_torch.geometry.camera import Intrinsics
+    from pop_up_slam_tpu_torch.io import synthetic
+
+    K = Intrinsics.create(64.0, 64.0, W / 2, H / 2, device=CPU)
+    world = synthetic.corridor_world(device=CPU)
+    Rs, ts = synthetic.corridor_trajectory(n, sway=sway, device=CPU)
+    masks = torch.stack([synthetic.render_frame(K, Rs[i], ts[i], world, H,
+                                                W)[0]
+                         for i in range(n)]) == synthetic.LABEL_GROUND
+    oR, ot = se3.se3_between(Rs[:-1], ts[:-1], Rs[1:], ts[1:])
+    return tuple(x.numpy() for x in (Rs, ts, masks, oR, ot))
+
+
 def spd_system(n: int, seed: int):
     """A well-conditioned SPD system (A A^T + n I, b), f32."""
     rng = np.random.default_rng(seed)

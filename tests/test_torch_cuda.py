@@ -866,3 +866,84 @@ def test_recover_marginals_on_the_card(cuda_device):
                                    atol=1e-3 * float(b.abs().max()))
     assert not out_g.pose_cov[0].any()
     assert not out_g.plane_cov[-2:].any()
+
+
+# ---------------------------------------------------------------------------
+# the slice of the batched and pipelined runners and the learned segmenter
+# ---------------------------------------------------------------------------
+
+SEGNET_TOL, SEGNET_MARGIN = 1e-2, 0.1     # chip_smoke.py's
+
+
+def test_segnet_on_card_matches_cpu(cuda_device):
+    """The pretrained SegNetLite (bf16 cuDNN convolutions) against the
+    same module on the CPU: logits within SEGNET_TOL (1 + |l|), masks
+    equal off SEGNET_MARGIN."""
+    from pop_up_slam_tpu_torch.models import load_pretrained_segnet
+
+    rgb = torch.rand((2, 64, 96, 3), generator=torch.Generator()
+                     .manual_seed(3))
+    cpu_model, _, _ = load_pretrained_segnet(device="cpu")
+    model, _, _ = load_pretrained_segnet(device=cuda_device)
+    with torch.no_grad():
+        want = cpu_model(rgb).numpy()
+        got = model(rgb.to(cuda_device)).cpu().numpy()
+    assert np.isfinite(got).all()
+    assert (np.abs(got - want) <= SEGNET_TOL * (1 + np.abs(want))).all()
+    differ = (got > 0) != (want > 0)
+    assert (np.abs(want[differ]) < SEGNET_MARGIN).all()
+
+
+def test_batched_pop_up_on_card_matches_cpu(cuda_device):
+    """The vmapped pop-up of a chunk on the card: valid walls and column
+    counts equal to the CPU's, planes within 1e-4."""
+    from _torch_parity import port_corridor
+    from pop_up_slam_tpu_torch.pipeline.batched import batched_pop_up
+
+    Rs, ts, masks, _, _ = port_corridor(9, sway=0.2)
+    pcfg = tpp.PopupConfig(min_cols=4, smooth_radius=2, nms_radius=3)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        K = Intrinsics.create(64.0, 64.0, 64.0, 48.0, device=dev)
+        res, det = batched_pop_up(
+            K, torch.as_tensor(masks, device=dev),
+            torch.as_tensor(Rs, device=dev), torch.as_tensor(ts, device=dev),
+            pcfg, pcfg.max_segments + 1)
+        outs.append((res, det))
+    (rc, dc), (rk, dk) = outs
+    assert torch.equal(rk.valid.cpu(), rc.valid)
+    assert torch.equal(rk.n_points.cpu(), rc.n_points)
+    assert_close(dk.planes_c, dc.planes_c, 1e-4, what="planes_c")
+
+
+def test_pipelined_on_card_bit_equal_to_sequential(cuda_device):
+    """The front end on a side stream, ``stale_prediction=False``: poses
+    equal bit for bit to the sequential frame loop, on three runs (a
+    missing event or a freed cross-stream tensor shows as a run that
+    differs); the stale schedule finite."""
+    from _torch_parity import port_corridor
+    from pop_up_slam_tpu_torch.pipeline import make_frame_fn, run_pipelined
+
+    Rs, ts, masks, oR, ot = port_corridor(11, sway=0.2)
+    masks, oR, ot = (torch.as_tensor(x, device=cuda_device)
+                     for x in (masks, oR, ot))
+    pcfg = tpp.PopupConfig(min_cols=6, smooth_radius=3, nms_radius=5)
+    scfg = tslam.SlamConfig(max_det=pcfg.max_segments + 1, kf_trans=0.05,
+                            kf_rot=0.05)
+    K = Intrinsics.create(64.0, 64.0, 64.0, 48.0, device=cuda_device)
+    frame = make_frame_fn(K, pcfg, scfg)
+    st = tslam.slam_init(scfg, Rs[0], ts[0], device=cuda_device)
+    seq = []
+    for i in range(10):
+        st, (_, t) = frame(st, (masks[i + 1], oR[i], ot[i]))
+        seq.append(t)
+    seq = torch.stack(seq)
+    for stale in (False, False, False, True):
+        st = tslam.slam_init(scfg, Rs[0], ts[0], device=cuda_device)
+        pipe = torch.stack([t for _, t in run_pipelined(
+            st, ((masks[i + 1], oR[i], ot[i]) for i in range(10)), K, pcfg,
+            scfg, stale_prediction=stale)])
+        torch.cuda.synchronize()
+        assert torch.isfinite(pipe).all()
+        if not stale:
+            assert torch.equal(pipe, seq)

@@ -164,7 +164,9 @@ def test_plane_transform_and_camera():
 def test_port_imports_without_jax():
     """The port imports in a process where ``import jax`` and the JAX
     package both fail: every module, the monocular and TUM slices'
-    included."""
+    included, and the slice of the batched and pipelined runners, the
+    segmenter network, the native loader, the problem builder and the
+    export."""
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['pop_up_slam_tpu'] = None; "
             "import pop_up_slam_tpu_torch, pop_up_slam_tpu_torch.pipeline, "
@@ -183,7 +185,13 @@ def test_port_imports_without_jax():
             "pop_up_slam_tpu_torch.models.segmentation, "
             "pop_up_slam_tpu_torch.config, "
             "pop_up_slam_tpu_torch.runners.tum_runner, "
-            "pop_up_slam_tpu_torch.cli; "
+            "pop_up_slam_tpu_torch.cli, "
+            "pop_up_slam_tpu_torch.pipeline.batched, "
+            "pop_up_slam_tpu_torch.pipeline.pipelined, "
+            "pop_up_slam_tpu_torch.io.native_loader, "
+            "pop_up_slam_tpu_torch.io.problems, "
+            "pop_up_slam_tpu_torch.viz, pop_up_slam_tpu_torch.viz.export, "
+            "pop_up_slam_tpu_torch.models; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
