@@ -103,7 +103,23 @@
    the libpng-written fixtures with every row filter; decode ms a frame
    of both codecs).  K5's device time at the smoother's shape, from the
    profiler.
-8. Prints the ``{"kernels": [...]}`` line (one row per kernel; K4's row
+8. Drives the multi-device slice and SegNetLite's training, against
+   ``corridor_ref_sharded.npz`` (the JAX package's multi-device paths on
+   a 2-device CPU mesh): ``sharded`` (``run_sequence_sharded`` over the
+   144 frames, blocks of 16, on a NCCL world of one on this card: the
+   DP pop-up and the factor-sharded GN, K5 twice a keyframe and no other
+   kernel; held as ``run_sharded_path`` says), ``sharded_gloo2`` (two
+   spawned gloo ranks on ``cuda:0``: ``distributed_gn_solve`` with K5 on
+   each rank's block and ``map_block_gn_solve`` on the recorded corridor
+   problem, against the single-device ``gn_solve``), ``single_host``
+   (``cli run --config single_host`` in-process at a world of one, 64
+   frames at 480x640; its ATE against the JAX CLI's) and ``multi_host``
+   once, ``smoother_mesh`` (``smooth_trajectory(mesh=)`` on the TUM
+   reference's recorder and state, against the single-device smoother
+   and the JAX mesh smoother) and ``segnet_train``
+   (``scripts/train_segnet_torch.py``'s loop, 400 steps: held-out IoU,
+   the first loss against the CPU module's, the checkpoint round trip).
+9. Prints the ``{"kernels": [...]}`` line (one row per kernel; K4's row
    is lm24's n=144, its other timed sizes, which no path launches, are
    nested under ``other_n`` with 0 launches; K5's row also carries its
    time at the smoother's shape), the card line, and last
@@ -1062,8 +1078,8 @@ def logging_slam_step(offline, log):
     odometry and ``n_kf`` before and after."""
     step = offline.slam_step
 
-    def logged(state, det, odom_R, odom_t, cfg):
-        nxt, pose = step(state, det, odom_R, odom_t, cfg)
+    def logged(state, det, odom_R, odom_t, cfg, **kwargs):
+        nxt, pose = step(state, det, odom_R, odom_t, cfg, **kwargs)
         log.append((state.acc_R, state.acc_t, odom_R, odom_t, state.n_kf,
                     nxt.n_kf))
         return nxt, pose
@@ -2279,6 +2295,443 @@ def run_native_path(native_loader, png, tree, gpu):
     for f in fixtures.values():
         assert f["native_equal"] and f["plain_equal"], fixtures
 
+# ---- the multi-device slice ----
+
+SHARDED_BLOCK = 16        # frames a block of the sharded runner
+# the two gloo ranks' device: PyTorch's gloo backend takes CUDA tensors
+# for all_reduce (the only collective of the two strategies held there)
+GLOO2_DEVICE = "cuda:0"
+GLOO2_TIMEOUT_S = 300
+GLOO2_ITERS, GLOO2_DAMPING = 3, 1e-6     # tests/test_parallel.py's solve
+GLOO2_TOL = 1e-3          # tests/test_parallel.py:54-58
+GLOO2_MAP_BLOCK_TOL = 2e-3   # tests/test_parallel_ext.py:50-59
+# the CLI's single_host ATE against the JAX CLI's (recorded): the odometry
+# noise comes from another generator, and over seeds 0-5 the port's own
+# ATE on the CPU spans 0.1525-0.319 m (PERF.md); the bound takes that
+# spread
+SINGLE_HOST_ATE_BOUND_M = 0.12
+SMOOTHER_MESH_TOL = 1e-4
+SEGNET_TRAIN_STEPS = 400
+SEGNET_TRAIN_IOU = 0.9    # tests/test_models.py:81, :112-118
+# the first step's loss on the card against the CPU module's: one mean
+# over 98,304 bf16 logits (cuDNN's bf16 convolutions against the CPU's)
+SEGNET_TRAIN_LOSS_RTOL = 5e-3
+
+
+def _recorded_problem(convert, ref_b, dev):
+    """The reference's ``build_corridor_problem`` output recorded in
+    ``corridor_ref_batched.npz``: (window, factors) on ``dev``."""
+    return (convert.window_from_numpy(_tree(ref_b, "problem.window."), dev),
+            convert.factors_from_numpy(_tree(ref_b, "problem.factors."),
+                                       dev))
+
+
+def run_sharded_path(torch, sharded, pp, offline, se3, convert, counters,
+                     ref, gpu, scfg, inputs, n, mesh):
+    """The ``sharded`` path: ``run_sequence_sharded`` over the ``n``
+    frames (blocks of SHARDED_BLOCK) on ``mesh`` (NCCL, a world of one on
+    this card), against ``corridor_ref_sharded.npz`` (the JAX sharded
+    runner on a 2-device CPU mesh).
+
+    Held: the free run (counters and collectives zeroed just before, read
+    just after) to its first pop-up branch (not before MIN_HELD of the
+    run) within TRAJ_BOUND_M; every frame's keyframe decision, the end
+    state's ``n_kf``, ``n_overflow`` and ``store.valid`` exactly; K5 twice
+    a keyframe (each GN iteration of the factor-sharded solve, on the
+    rank's block) and no other kernel.  Anchored: each block from the
+    reference's recorded block-start state, every frame within
+    TRAJ_BOUND_M.  The DP pop-up at the reference's predicted poses equal
+    to its recorded walls (valid, column counts) on every frame.  Reports
+    ``all_reduce`` calls a frame, frames/s and launches a frame beside the
+    chunked runner's (depth off) in this call.  Returns the free run's
+    launches."""
+    from pop_up_slam_tpu_torch.parallel import distributed
+    from pop_up_slam_tpu_torch.pipeline import slam_init
+
+    masks_d, oR, ot, R0, t0, K, pcfg = inputs
+    dev = masks_d.device
+    pops, kf_log = [], []
+    sharded_popup, step = sharded.sharded_popup, sharded.slam_step
+
+    def recording_popup(*args, **kwargs):
+        res, det = sharded_popup(*args, **kwargs)
+        pops.append(res.valid)
+        return res, det
+
+    def run(frames):
+        st = slam_init(scfg, R0, t0, device=dev)
+        out = sharded.run_sequence_sharded(st, masks_d[:frames], oR[:frames],
+                                           ot[:frames], K, pcfg, scfg, mesh,
+                                           block=SHARDED_BLOCK)
+        _sync(torch)
+        return out
+
+    def chunked(frames):
+        st = slam_init(scfg, R0, t0, device=dev)
+        out = offline.run_sequence_chunked(st, masks_d[:frames],
+                                           oR[:frames], ot[:frames], K,
+                                           pcfg, scfg, chunk=SHARDED_BLOCK)
+        _sync(torch)
+        return out
+
+    run(SHARDED_BLOCK)
+    sharded.sharded_popup = recording_popup
+    sharded.slam_step = logging_slam_step(sharded, kf_log)
+    try:
+        for fn in counters.values():
+            fn.launches = 0
+        for k in distributed.collective_calls:
+            distributed.collective_calls[k] = 0
+        t0_run = time.perf_counter()
+        state, (Rs, ts) = run(n)
+        dt = time.perf_counter() - t0_run
+        launches = {k: fn.launches for k, fn in counters.items()}
+        collectives = dict(distributed.collective_calls)
+    finally:
+        sharded.sharded_popup, sharded.slam_step = sharded_popup, step
+    assert torch.isfinite(ts).all() and torch.isfinite(Rs).all()
+    fps = {"sharded": [n / dt], "chunked_no_depth": []}
+    for name, fn in (("chunked_no_depth", chunked), ("sharded", run),
+                     ("chunked_no_depth", chunked)):
+        t0_run = time.perf_counter()
+        fn(n)
+        fps[name].append(n / (time.perf_counter() - t0_run))
+    per_frame = {
+        "sharded": launches_per_frame(torch, lambda: run(PROFILE_FRAMES),
+                                      PROFILE_FRAMES),
+        "chunked_no_depth": launches_per_frame(
+            torch, lambda: chunked(PROFILE_FRAMES), PROFILE_FRAMES)}
+
+    valid = torch.cat(pops).cpu().numpy()
+    held = _first_false((valid == ref["popup_valid"][:n]).all(-1))
+    t_err = np.abs(ts.cpu().numpy() - ref["t"][:n]).max(-1)
+    discrete = {
+        "n_kf": int(state.n_kf) == int(ref["n_kf"]),
+        "n_overflow": int(state.n_overflow) == int(ref["n_overflow"]),
+        "store_valid": bool((state.store.valid.cpu().numpy()
+                             == ref["store_valid"]).all())}
+    n_kf = ref["frame_n_kf"][:n]
+    ref_kf = n_kf > np.append(ref["block.n_kf"][0], n_kf[:-1])
+    kf_dec, margin = keyframe_decisions(torch, se3, kf_log, scfg)
+    kf = hold_keyframes(kf_dec, margin, ref_kf)
+    keyframes = int(kf_dec.sum())
+    # each block from the reference's state at its start
+    run_block = sharded.make_sharded_runner(K, pcfg, scfg, mesh)
+    oR_d = torch.as_tensor(oR, device=dev)
+    ot_d = torch.as_tensor(ot, device=dev)
+    t_a = []
+    for c in range(0, n, SHARDED_BLOCK):
+        sl = slice(c, c + SHARDED_BLOCK)
+        st = convert.slam_state_from_numpy(
+            _tree(ref, "block.", c // SHARDED_BLOCK), dev)
+        st, (_, t_c) = run_block(st, masks_d[sl], oR_d[sl], ot_d[sl])
+        t_a.append(t_c)
+    anchored = np.abs(torch.cat(t_a).cpu().numpy() - ref["t"][:n]).max(-1)
+    # the DP pop-up at the reference's predicted poses
+    differ = []
+    for c in range(0, n, SHARDED_BLOCK):
+        sl = slice(c, c + SHARDED_BLOCK)
+        res = sharded.sharded_popup(
+            lambda m, R_, t_: pp.pop_up(K, m, R_, t_, pcfg), masks_d[sl],
+            torch.as_tensor(ref["popup_R"][sl], device=dev),
+            torch.as_tensor(ref["popup_t"][sl], device=dev), mesh)
+        same_c = ((res.valid.cpu().numpy() == ref["popup_valid"][sl])
+                  & (res.n_points.cpu().numpy()
+                     == ref["popup_n_points"][sl])).all(-1)
+        differ += [c + int(i) for i in np.nonzero(~same_c)[0]]
+    out = {"path": "sharded", "frames": n, "block": SHARDED_BLOCK,
+           "world_size": mesh.size(), "backend": "nccl", "card": gpu,
+           "launches": launches, "keyframes": keyframes,
+           "collectives": collectives,
+           "all_reduce_per_frame": collectives["all_reduce"] / n,
+           "frames_per_s": fps, "launches_per_frame": per_frame,
+           "traj_bound_m": TRAJ_BOUND_M, "frames_held": held,
+           "traj_held_max_abs_err_m": float(t_err[:held].max()),
+           "traj_max_abs_err_m": float(t_err.max()),
+           "discrete_match": discrete, "keyframe_decisions": kf,
+           "anchored_traj_max_abs_err_m": float(anchored.max()),
+           "popup_at_reference_poses_differ": differ,
+           "traj_abs_err_m_per_frame": t_err.tolist()}
+    print(json.dumps(out))
+    assert held >= MIN_HELD * n, f"sharded: pop-up branch at frame {held}"
+    assert float(t_err[:held].max()) <= TRAJ_BOUND_M, out[
+        "traj_held_max_abs_err_m"]
+    assert all(discrete.values()), discrete
+    assert (kf_dec == ref_kf).all(), kf
+    assert float(anchored.max()) <= TRAJ_BOUND_M, float(anchored.max())
+    assert not differ, f"sharded pop-up parts at frames {differ}"
+    assert launches["plane_terms"] == scfg.gn_iters * keyframes, launches
+    assert sum(launches.values()) == launches["plane_terms"], launches
+    assert collectives["all_reduce"] == scfg.gn_iters * keyframes, out
+    return launches
+
+
+def _gloo2_rank(rank, port, device, q):
+    """One of the two gloo ranks of the ``sharded_gloo2`` phase: the
+    factor-sharded GN (``analytic_planes=True``: K5 on its block) and the
+    map-block GN on the recorded corridor problem."""
+    try:
+        import datetime
+
+        import torch
+        import torch.distributed as dist
+
+        sys.path.insert(0, REPO)
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+            rank=rank, timeout=datetime.timedelta(seconds=GLOO2_TIMEOUT_S))
+        from pop_up_slam_tpu_torch import convert
+        from pop_up_slam_tpu_torch.ops import plane_jacobians as pj
+        from pop_up_slam_tpu_torch.parallel import (
+            distributed, distributed_gn_solve, make_mesh,
+            map_block_gn_solve)
+
+        mesh = make_mesh(2, device=dev)
+        ref_b = np.load(os.path.join(REPO, "pop_up_slam_tpu_torch", "data",
+                                     "corridor_ref_batched.npz"))
+        w, f = _recorded_problem(convert, ref_b, dev)
+        pj.plane_terms.launches = 0
+        w_d, _ = distributed_gn_solve(w, f, mesh, iters=GLOO2_ITERS,
+                                      damping=GLOO2_DAMPING,
+                                      analytic_planes=True)
+        k5 = pj.plane_terms.launches
+        w_m, _ = map_block_gn_solve(w, f, mesh, iters=GLOO2_ITERS,
+                                    damping=GLOO2_DAMPING)
+        out = {"k5": k5, "collectives": dict(distributed.collective_calls),
+               "device": str(w_d.t.device)}
+        for name, w_ in (("gn", w_d), ("map_block", w_m)):
+            out[name] = {k: getattr(w_, k).cpu().numpy()
+                         for k in ("R", "t", "planes")}
+        q.put((rank, True, out))
+        dist.destroy_process_group()
+    except Exception:  # noqa: BLE001  (reported to the parent)
+        import traceback
+
+        q.put((rank, False, traceback.format_exc()))
+
+
+def run_gloo2_path(torch, convert, solver, pj, ref_b, gpu):
+    """The ``sharded_gloo2`` phase: two spawned ranks over gloo, both on
+    GLOO2_DEVICE (NCCL will not put two ranks on one card), run
+    ``distributed_gn_solve`` (K5 on each rank's block) and
+    ``map_block_gn_solve`` on the recorded corridor problem; held against
+    the port's single-device ``gn_solve`` on the card (GLOO2_TOL,
+    GLOO2_MAP_BLOCK_TOL), K5 once a GN iteration on each rank.  A rank
+    that fails or exceeds GLOO2_TIMEOUT_S fails the phase."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    ctx = mp.get_context("spawn")
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_gloo2_rank,
+                         args=(r, port, GLOO2_DEVICE, q), daemon=True)
+             for r in range(2)]
+    t0_run = time.perf_counter()
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        while len(results) < 2:
+            left = GLOO2_TIMEOUT_S - (time.perf_counter() - t0_run)
+            assert left > 0, f"gloo ranks: no result in {GLOO2_TIMEOUT_S} s"
+            try:
+                rank, ok, payload = q.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in results and p.exitcode is not None]
+                assert not dead, f"gloo rank(s) {dead} exited, no result"
+                continue
+            assert ok, f"gloo rank {rank} failed:\n{payload}"
+            results[rank] = payload
+    finally:
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    seconds = time.perf_counter() - t0_run
+    dev = torch.device(GLOO2_DEVICE)
+    w, f = _recorded_problem(convert, ref_b, dev)
+    ref_gn, _ = solver.gn_solve(w, f, iters=GLOO2_ITERS,
+                                damping=GLOO2_DAMPING, analytic_planes=True)
+    ref_mb, _ = solver.gn_solve(w, f, iters=GLOO2_ITERS,
+                                damping=GLOO2_DAMPING)
+    err = {}
+    for name, ref_w in (("gn", ref_gn), ("map_block", ref_mb)):
+        for k in ("t", "planes"):
+            r = getattr(ref_w, k).cpu().numpy()
+            err[f"{name}_{k}"] = max(
+                float(np.abs(results[q_][name][k] - r).max())
+                for q_ in range(2))
+    out = {"path": "sharded_gloo2", "world_size": 2, "backend": "gloo",
+           "device": GLOO2_DEVICE, "card_path": dev.type == "cuda",
+           "card": gpu, "seconds": seconds,
+           "k5_launches_per_rank": [results[r]["k5"] for r in range(2)],
+           "collectives_per_rank": [results[r]["collectives"]
+                                    for r in range(2)],
+           "max_abs_err": err, "tol": GLOO2_TOL,
+           "map_block_tol": GLOO2_MAP_BLOCK_TOL}
+    print(json.dumps(out))
+    for r in range(2):
+        assert results[r]["device"] == str(dev), results[r]["device"]
+        assert results[r]["k5"] == GLOO2_ITERS, out
+        for name in ("gn", "map_block"):
+            for k in ("R", "t", "planes"):
+                assert np.isfinite(results[r][name][k]).all(), (r, name, k)
+                assert np.array_equal(results[r][name][k],
+                                      results[0][name][k]), (r, name, k)
+    assert err["gn_t"] <= GLOO2_TOL and err["gn_planes"] <= GLOO2_TOL, out
+    assert max(err["map_block_t"], err["map_block_planes"]) <= \
+        GLOO2_MAP_BLOCK_TOL, out
+    return out
+
+
+def run_single_host_paths(torch, cli, counters, ref, gpu, dev="cuda"):
+    """The ``single_host`` path: ``cli run --config single_host``
+    in-process, a world of one on this card (64 frames at 480x640, the
+    sharded runner, K5 in each GN iteration).  Held: exit code 0, the
+    summary's keys and frame count the JAX CLI's (recorded), its ATE
+    within SINGLE_HOST_ATE_BOUND_M of the JAX CLI's, K5 twice a keyframe
+    solve and no other kernel.  Then ``multi_host`` once (the same
+    runner over a (1, 1) host mesh's flattened axis, 128 frames, W=12,
+    L=128): exit code 0, the keys, finite poses.  Returns the
+    ``single_host`` launches."""
+    from pop_up_slam_tpu_torch.parallel import distributed
+
+    keys = {k.split(".", 1)[1] for k in ref.files
+            if k.startswith("cli_single_host.")}
+    out = {}
+    for preset in ("single_host", "multi_host"):
+        for fn in counters.values():
+            fn.launches = 0
+        for k in distributed.collective_calls:
+            distributed.collective_calls[k] = 0
+        t0_run = time.perf_counter()
+        rc, summary = _cli_json(cli.main, ["run", "--config", preset,
+                                           "--device", dev])
+        seconds = time.perf_counter() - t0_run
+        launches = {k: fn.launches for k, fn in counters.items()}
+        out[preset] = {"rc": rc, "summary": summary, "launches": launches,
+                       "collectives": dict(distributed.collective_calls),
+                       "seconds": seconds}
+    sh = out["single_host"]["summary"]
+    ref_ate = float(ref["cli_single_host.ate_rmse_m"])
+    line = {"path": "single_host", "card": gpu, **out,
+            "ref_summary": {k: ref[f"cli_single_host.{k}"].item()
+                            for k in sorted(keys)},
+            "ate_bound_m": SINGLE_HOST_ATE_BOUND_M,
+            "ate_diff_m": abs(sh["ate_rmse_m"] - ref_ate)}
+    print(json.dumps(line))
+    for preset in ("single_host", "multi_host"):
+        s = out[preset]["summary"]
+        assert out[preset]["rc"] == 0 and set(s) == keys, line
+        assert s["finite"] and s["n_devices"] == 1, line
+        c = out[preset]["launches"]
+        assert c["plane_terms"] == 2 * (s["n_keyframes"] - 1), line
+        assert sum(c.values()) == c["plane_terms"], line
+    assert sh["frames"] == int(ref["cli_single_host.frames"]), line
+    assert abs(sh["ate_rmse_m"] - ref_ate) <= SINGLE_HOST_ATE_BOUND_M, line
+    return out["single_host"]["launches"]
+
+
+def run_smoother_mesh_path(torch, smoothing, convert, counters, ref_tum,
+                           ref, gpu, mesh, dev="cuda"):
+    """The ``smoother_mesh`` phase: ``smooth_trajectory(mesh=)`` (the
+    keyframe-sharded GN, ``jacfwd`` terms) at a world of one on the
+    ``tum`` path's recorded recorder and state (``corridor_ref_tum.npz``),
+    held within SMOOTHER_MESH_TOL of the port's single-device smoother on
+    the same inputs and of the JAX 2-device mesh smoother (recorded)."""
+    from pop_up_slam_tpu_torch.config import get_config
+
+    scfg = get_config("tum_fr3").slam
+    rec = smoothing.TrajectoryRecorder.restore(
+        scfg, _tree(ref_tum, "rec.", slice(None)))
+    st = convert.slam_state_from_numpy(_tree(ref_tum, "state."), dev)
+    for fn in counters.values():
+        fn.launches = 0
+    t0_run = time.perf_counter()
+    kf_R, kf_t, _ = smoothing.smooth_trajectory(rec, st, scfg, iters=8,
+                                                damping=scfg.damping,
+                                                mesh=mesh)
+    ms = (time.perf_counter() - t0_run) * 1e3
+    launches = {k: fn.launches for k, fn in counters.items()}
+    R1, t1, _ = smoothing.smooth_trajectory(rec, st, scfg, iters=8,
+                                            damping=scfg.damping)
+    err = {"vs_single_device_t": float(np.abs(kf_t - t1).max()),
+           "vs_single_device_R": float(np.abs(kf_R - R1).max()),
+           "vs_jax_mesh_t": float(np.abs(kf_t - ref["mesh_kf_t"]).max()),
+           "vs_jax_mesh_R": float(np.abs(kf_R - ref["mesh_kf_R"]).max())}
+    out = {"path": "smoother_mesh", "world_size": mesh.size(), "card": gpu,
+           "keyframes": int(kf_t.shape[0]), "ms": ms, "launches": launches,
+           "max_abs_err": err, "tol": SMOOTHER_MESH_TOL}
+    print(json.dumps(out))
+    assert np.isfinite(kf_t).all() and np.isfinite(kf_R).all()
+    assert max(err.values()) <= SMOOTHER_MESH_TOL, out
+    return launches
+
+
+def run_segnet_train_path(torch, seg, counters, gpu, dev="cuda"):
+    """The ``segnet_train`` path: ``scripts/train_segnet_torch.py``'s loop
+    on the card (SEGNET_TRAIN_STEPS steps of 8 frames at 96x128).  Held:
+    held-out IoU at least SEGNET_TRAIN_IOU on the script's 5 batches; the
+    first step's loss against the CPU module's from the same initial
+    parameters and batch within SEGNET_TRAIN_LOSS_RTOL; the checkpoint
+    through ``save_segnet`` and ``load_pretrained_segnet`` gives the same
+    parameters and IoU; no kernel of the port runs.  Prints ms a step
+    (the loop, batch rendering included) and ``train_step``'s alone."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "train_segnet_torch", os.path.join(REPO, "scripts",
+                                           "train_segnet_torch.py"))
+    tr = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tr)
+    for fn in counters.values():
+        fn.launches = 0
+    model, params, tx, losses, loop_ms, (rgb0, gt0) = tr.train(
+        SEGNET_TRAIN_STEPS, dev, seed=0, log_every=0)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    ious = tr.holdout_ious(model, params, dev)
+    m_cpu, p_cpu, tx_cpu = seg.create_train_state(
+        torch.Generator().manual_seed(0), lr=tr.LR, image_hw=(tr.H, tr.W),
+        device="cpu")
+    loss_cpu = float(seg.train_step(m_cpu, p_cpu, tx_cpu, rgb0.cpu(),
+                                    gt0.cpu()))
+    loss0 = float(losses[0])
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "segnet_torch.npz")
+        seg.save_segnet(path, params, {"steps": SEGNET_TRAIN_STEPS,
+                                       "min_holdout_iou": min(ious)})
+        m2, p2, meta2 = seg.load_pretrained_segnet(path, device=dev)
+        same = all(torch.equal(params[k].detach(), p2[k]) for k in params)
+        ious2 = tr.holdout_ious(m2, p2, dev)
+    step_ms = _time_ms(lambda: seg.train_step(model, params, tx, rgb0, gt0),
+                       n=20, warm=3)
+    out = {"path": "segnet_train", "steps": SEGNET_TRAIN_STEPS,
+           "batch": tr.BATCH, "shape": [tr.H, tr.W], "card": gpu,
+           "holdout_iou": ious, "iou_gate": SEGNET_TRAIN_IOU,
+           "loss_first": loss0, "loss_first_cpu": loss_cpu,
+           "loss_first_rel_diff": abs(loss0 - loss_cpu) / abs(loss_cpu),
+           "loss_rtol": SEGNET_TRAIN_LOSS_RTOL,
+           "loss_last": float(losses[-1]), "loop_ms_per_step": loop_ms,
+           "train_step_ms": step_ms, "checkpoint_params_equal": same,
+           "checkpoint_holdout_iou": ious2, "checkpoint_meta": meta2,
+           "launches": launches}
+    print(json.dumps(out))
+    assert torch.isfinite(losses).all()
+    assert min(ious) >= SEGNET_TRAIN_IOU, ious
+    assert out["loss_first_rel_diff"] <= SEGNET_TRAIN_LOSS_RTOL, out
+    assert same and ious2 == ious, out
+    assert sum(launches.values()) == 0, launches
+    return launches
+
 
 def _sync(torch):
     if torch.cuda.is_available():
@@ -2312,6 +2765,9 @@ def main() -> int:
     from pop_up_slam_tpu_torch.io import native_loader, png, synthetic
     from pop_up_slam_tpu_torch.models import segmentation
     from pop_up_slam_tpu_torch.pipeline import batched, pipelined
+    from pop_up_slam_tpu_torch import cli, solver
+    from pop_up_slam_tpu_torch.parallel import make_mesh
+    from pop_up_slam_tpu_torch.pipeline import sharded, smoothing
 
     t_start = time.perf_counter()
     gpu = _gpu_line()
@@ -2475,7 +2931,32 @@ def main() -> int:
                                       counters, ref_b, gpu)
     phase_s["segnet_path"] = time.perf_counter() - t_ph
 
-    # ---- 8. summary ----
+    # ---- 8. the multi-device slice, SegNetLite's training ----
+    ref_s = np.load(os.path.join(ref_dir, "corridor_ref_sharded.npz"))
+    mesh = make_mesh(device="cuda")      # NCCL, a world of one
+    t_ph = time.perf_counter()
+    paths["sharded"] = run_sharded_path(torch, sharded, pp, offline, se3,
+                                        convert, counters, ref_s, gpu, scfg,
+                                        inputs, n, mesh)
+    phase_s["sharded_path"] = time.perf_counter() - t_ph
+    t_ph = time.perf_counter()
+    run_gloo2_path(torch, convert, solver, pj, ref_b, gpu)
+    phase_s["sharded_gloo2"] = time.perf_counter() - t_ph
+    t_ph = time.perf_counter()
+    paths["single_host"] = run_single_host_paths(torch, cli, counters, ref_s,
+                                                 gpu)
+    phase_s["single_host_paths"] = time.perf_counter() - t_ph
+    t_ph = time.perf_counter()
+    run_smoother_mesh_path(torch, smoothing, convert, counters, ref_tum,
+                           ref_s, gpu, mesh)
+    phase_s["smoother_mesh"] = time.perf_counter() - t_ph
+    t_ph = time.perf_counter()
+    paths["segnet_train"] = run_segnet_train_path(torch, segmentation,
+                                                  counters, gpu)
+    phase_s["segnet_train_path"] = time.perf_counter() - t_ph
+    torch.distributed.destroy_process_group()
+
+    # ---- 9. summary ----
     def row(name, counter, own_path, source, replaces, err, tm,
             on_path=True):
         b_ms, b_by = _bound(*tm["work"])

@@ -6,8 +6,11 @@ end, prints the summary as JSON, optionally writes a TUM-format
 trajectory and a metrics JSONL.  Modes: ``popup_demo`` (one rendered
 frame popped up, its depth rendered), ``synthetic`` (the ``corridor``
 preset: the SLAM step over simulated plane observations) and ``tum`` (a
-TUM sequence, ``runners.tum_runner``).  ``distributed``
-(``single_host``, ``multi_host``) is not ported yet and raises.
+TUM sequence, ``runners.tum_runner``) and ``distributed``
+(``single_host``, ``multi_host``: the sharded runner,
+``pipeline/sharded.py``, over a rendered corridor, one process per
+device: alone as a world of one, or under ``torchrun --nproc_per_node=N
+-m pop_up_slam_tpu_torch.cli run --config single_host``).
 
 Everything runs on the GPU unless ``--device cpu`` is given.
 """
@@ -131,11 +134,99 @@ def _run_tum(cfg, args, dev):
     return 0
 
 
-def _run_distributed(cfg, args, dev):
-    from .pipeline.smoothing import MULTI_GPU_TODO
+def _sharded_corridor(cfg, dev):
+    """The body of :func:`_run_distributed`."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
 
-    raise NotImplementedError(
-        f"mode 'distributed' (preset {cfg.name!r}): {MULTI_GPU_TODO}")
+    from .evaluation import ate_rmse
+    from .geometry.camera import Intrinsics
+    from .io import synthetic
+    from .parallel import flat_mesh_axis, make_host_mesh, make_mesh
+    from .pipeline import run_sequence_sharded, slam_init
+
+    n_ask = cfg.n_devices or None
+    mesh = make_mesh(n_ask, device=dev)
+    if cfg.name == "multi_host":
+        make_host_mesh()
+        mesh = flat_mesh_axis()
+    n_dev = dist.get_world_size()
+    # block = frames per dispatch; every rank pops up block / n of them
+    block = max(n_dev, (16 // n_dev) * n_dev)
+
+    scfg = cfg.slam
+    H, W = cfg.height, cfg.width
+    K = Intrinsics.create(0.5 * W, 0.5 * W, 0.5 * W, 0.5 * H, device=dev)
+    world = synthetic.corridor_world(device=dev)
+    n = (cfg.n_frames // block) * block + 1
+    gt_R, gt_t = synthetic.corridor_trajectory(n, device=dev)
+    masks = torch.stack([
+        synthetic.render_frame(K, gt_R[i], gt_t[i], world, H, W)[0]
+        for i in range(1, n)]) == synthetic.LABEL_GROUND
+    # the noise is drawn on the host from a generator seeded by cfg.seed
+    # (the reference draws from jax.random: the numbers differ)
+    gen = torch.Generator().manual_seed(cfg.seed)
+    oR, ot = synthetic.noisy_odometry(gt_R, gt_t, generator=gen,
+                                      sigma_t=cfg.odom_sigma_t,
+                                      sigma_r=cfg.odom_sigma_r)
+
+    state = slam_init(scfg, gt_R[0], gt_t[0], device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_start = time.perf_counter()
+    state, (R_est, t_est) = run_sequence_sharded(
+        state, masks, oR, ot, K, cfg.popup, scfg, mesh, block=block)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t_start
+
+    t_np = t_est.cpu().numpy()
+    ate, _, _ = ate_rmse(gt_t[1:len(t_np) + 1].cpu().numpy(), t_np)
+    summary = {
+        "config": cfg.name,
+        "mode": "distributed",
+        "n_devices": n_dev,
+        "block": block,
+        "frames": int(t_np.shape[0]),
+        "ate_rmse_m": round(float(ate), 4),
+        "n_keyframes": int(state.n_kf),
+        "n_landmarks": int(state.window.lm_valid.sum()),
+        "frames_per_s": round(t_np.shape[0] / wall, 2),
+        "finite": bool(np.isfinite(t_np).all()),
+    }
+    if dist.get_rank() == 0:
+        print(json.dumps(summary, indent=2))
+        if cfg.out_trajectory:
+            from .io import tum
+
+            tum.write_trajectory(cfg.out_trajectory,
+                                 [i / 30.0 for i in range(t_np.shape[0])],
+                                 R_est.cpu().numpy(), t_np)
+    return 0 if summary["finite"] else 1
+
+
+def _run_distributed(cfg, args, dev):
+    """The distributed runner (``pipeline/sharded.py``) over a rendered
+    480x640 synthetic corridor: the pop-up data-parallel across the
+    ranks, the factor-sharded BA summed by one ``all_reduce`` a GN
+    iteration.  Every rank runs the same frames; rank 0 prints the
+    summary and writes the trajectory.  ``multi_host`` brings the group
+    up as ``single_host`` does (``make_mesh``: ``init_distributed`` on
+    ``torchrun``'s environment), builds the (hosts, ranks per host) mesh
+    and runs over its flattened axis; without a launcher either preset
+    runs as a world of one."""
+    import torch.distributed as dist
+
+    from .parallel.multihost import rank_device
+
+    started_here = not dist.is_initialized()
+    try:
+        return _sharded_corridor(cfg, rank_device(dev))
+    finally:
+        # a process group this call started ends with it
+        if started_here and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 _MODES = {

@@ -74,7 +74,7 @@ def _tum_fr3() -> RunConfig:
 
 def _single_host() -> RunConfig:
     """Sliding-window BA on all the devices of one host (data-parallel
-    front end + factor-sharded Schur); its runner is not ported yet."""
+    front end + factor-sharded Schur, ``pipeline/sharded.py``)."""
     return RunConfig(
         name="single_host", mode="distributed", n_frames=64,
         slam=SlamConfig(window_size=8, max_landmarks=64, max_det=9),
@@ -82,8 +82,8 @@ def _single_host() -> RunConfig:
 
 
 def _multi_host() -> RunConfig:
-    """Partitioned map-block SLAM, distributed Schur across 2+ hosts
-    (the same runner as ``single_host``); not ported yet."""
+    """Distributed Schur across 2+ hosts: the same runner as
+    ``single_host``, over the flattened host mesh."""
     return RunConfig(
         name="multi_host", mode="distributed", n_frames=128,
         slam=SlamConfig(window_size=12, max_landmarks=128, max_det=9),

@@ -5,8 +5,10 @@ Each ``*_from_numpy`` takes the reference object's arrays as numpy
 names, or a dict keyed by them — and returns the port's tuple on
 ``device`` with the dtypes kept (f32, int32, bool).  Each ``*_to_numpy``
 returns a tuple of the same type with numpy arrays.  Nested tuples
-(``Factors``, ``SlamState``, ``VOState``, ``FusedVOState``) convert
-recursively.  No module of the JAX
+(``Factors``, ``SlamState``, ``VOState``, ``FusedVOState``,
+``RoutedFactors``) convert recursively; a state recorded at a block's
+start (``block.*`` of ``corridor_ref_sharded.npz``) converts through
+:func:`slam_state_from_numpy`.  No module of the JAX
 package is imported here.
 """
 
@@ -20,6 +22,7 @@ from .factors.graph import (Factors, OdomFactors, PlaneFactors, PosePriors,
 from .fusion.depth_fusion import DepthFilter
 from .geometry.camera import Intrinsics
 from .mapping.landmark_store import LandmarkStore
+from .parallel.keyframe_blocks import RoutedFactors
 from .pipeline.offline import FusedVOState, VOState
 from .pipeline.slam import FrameDetections, SlamState
 from .popup.popup import PopupPlanes
@@ -42,6 +45,9 @@ _NESTED = {
     (VOState, "slam"): SlamState,
     (FusedVOState, "vo"): VOState,
     (FusedVOState, "filt"): DepthFilter,
+    (RoutedFactors, "odom"): OdomFactors,
+    (RoutedFactors, "planes"): PlaneFactors,
+    (RoutedFactors, "priors"): PosePriors,
 }
 
 
@@ -110,6 +116,10 @@ def depth_filter_from_numpy(x, device) -> DepthFilter:
     return _from(DepthFilter, x, device)
 
 
+def routed_factors_from_numpy(x, device) -> RoutedFactors:
+    return _from(RoutedFactors, x, device)
+
+
 def segnet_state_dict_from_flax(params) -> dict:
     """A flax ``SegNetLite`` parameter tree as numpy arrays (``{"params":
     {"Conv_k": {"kernel": (kh, kw, in, out), "bias": (out,)}}}``, the
@@ -126,7 +136,24 @@ def segnet_state_dict_from_flax(params) -> dict:
     return sd
 
 
+def segnet_flax_tree_from_state_dict(sd) -> dict:
+    """The inverse of :func:`segnet_state_dict_from_flax`: a port
+    SegNetLite state (or parameter) dict -> flax's ``{"params": {"Conv_k":
+    {"bias", "kernel"}}}`` as f32 numpy."""
+    convs = {}
+    for name, x in sd.items():
+        _, k, kind = name.split(".")
+        a = x.detach().cpu().numpy().astype(np.float32)
+        leaf = convs.setdefault(f"Conv_{k}", {})
+        if kind == "weight":
+            leaf["kernel"] = a.transpose(2, 3, 1, 0)
+        else:
+            leaf["bias"] = a
+    return {"params": convs}
+
+
 intrinsics_to_numpy = window_to_numpy = factors_to_numpy = _to
 landmark_store_to_numpy = slam_state_to_numpy = _to
 popup_planes_to_numpy = frame_detections_to_numpy = _to
 vo_state_to_numpy = fused_vo_state_to_numpy = depth_filter_to_numpy = _to
+routed_factors_to_numpy = _to

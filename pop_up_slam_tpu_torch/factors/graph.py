@@ -70,6 +70,23 @@ class OdomFactors(NamedTuple):
     sqrt_info: torch.Tensor  # (O, 6, 6)
     valid: torch.Tensor      # (O,) bool
 
+    @staticmethod
+    def empty(capacity: int, device=None) -> "OdomFactors":
+        """``capacity`` invalid factors with identity-valued measurements
+        (the filler that pads a batch: a zero rotation would NaN the
+        ``jacfwd`` terms, and 0 * NaN is NaN)."""
+        f32 = torch.float32
+        return OdomFactors(
+            i=torch.zeros((capacity,), dtype=torch.int32, device=device),
+            j=torch.zeros((capacity,), dtype=torch.int32, device=device),
+            R_meas=torch.eye(3, dtype=f32, device=device).repeat(capacity,
+                                                                 1, 1),
+            t_meas=torch.zeros((capacity, 3), dtype=f32, device=device),
+            sqrt_info=torch.eye(6, dtype=f32, device=device).repeat(
+                capacity, 1, 1),
+            valid=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        )
+
 
 class PlaneFactors(NamedTuple):
     pose_idx: torch.Tensor   # (F,) int32
@@ -78,6 +95,21 @@ class PlaneFactors(NamedTuple):
     sqrt_info: torch.Tensor  # (F, 3, 3)
     valid: torch.Tensor      # (F,) bool
 
+    @staticmethod
+    def empty(capacity: int, device=None) -> "PlaneFactors":
+        """``capacity`` invalid factors measuring the unit plane z = 0."""
+        f32 = torch.float32
+        return PlaneFactors(
+            pose_idx=torch.zeros((capacity,), dtype=torch.int32,
+                                 device=device),
+            lm_idx=torch.zeros((capacity,), dtype=torch.int32, device=device),
+            pi_meas=torch.tensor([0.0, 0.0, 1.0, 0.0], dtype=f32,
+                                 device=device).repeat(capacity, 1),
+            sqrt_info=torch.eye(3, dtype=f32, device=device).repeat(
+                capacity, 1, 1),
+            valid=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        )
+
 
 class PosePriors(NamedTuple):
     idx: torch.Tensor        # (P,) int32
@@ -85,6 +117,19 @@ class PosePriors(NamedTuple):
     t: torch.Tensor          # (P, 3)
     sqrt_info: torch.Tensor  # (P, 6, 6)
     valid: torch.Tensor      # (P,) bool
+
+    @staticmethod
+    def empty(capacity: int, device=None) -> "PosePriors":
+        """``capacity`` invalid priors at the identity pose."""
+        f32 = torch.float32
+        return PosePriors(
+            idx=torch.zeros((capacity,), dtype=torch.int32, device=device),
+            R=torch.eye(3, dtype=f32, device=device).repeat(capacity, 1, 1),
+            t=torch.zeros((capacity, 3), dtype=f32, device=device),
+            sqrt_info=torch.eye(6, dtype=f32, device=device).repeat(
+                capacity, 1, 1),
+            valid=torch.zeros((capacity,), dtype=torch.bool, device=device),
+        )
 
 
 class Factors(NamedTuple):

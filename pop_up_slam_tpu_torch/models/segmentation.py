@@ -8,8 +8,11 @@ Port of ``pop_up_slam_tpu/models/segmentation.py``:
 2. :class:`SegNetLite` — the small encoder-decoder, f32 parameters and
    bf16 compute, with :func:`predict_mask` and
    :func:`load_pretrained_segnet`, which reads the committed
-   synthetic-trained checkpoint ``models_data/segnet_lite.npz``.  Its
-   training (``create_train_state``, ``train_step``) is not ported.
+   synthetic-trained checkpoint ``models_data/segnet_lite.npz``, and its
+   training: :func:`create_train_state` (flax's initializer, Adam) and
+   :func:`train_step` (the mean sigmoid binary cross-entropy, the bf16
+   forward differentiated by autograd); :func:`save_segnet` writes a
+   checkpoint in the committed file's layout.
 """
 
 from __future__ import annotations
@@ -152,6 +155,62 @@ class SegNetLite(nn.Module):
         return self._conv(k, x, torch.float32)[:, 0]
 
 
+def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator):
+    """flax's ``lecun_normal``: a normal of variance 1 / fan_in truncated
+    at two standard deviations (its stddev divided by 0.8796..., the
+    truncated unit normal's)."""
+    fan_in = weight.shape[1] * weight.shape[2] * weight.shape[3]
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    torch.nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                generator=generator)
+
+
+def create_train_state(seed_or_generator, lr: float = 1e-3,
+                       image_hw=(120, 160), device=None):
+    """A fresh SegNetLite to train: (model, params, tx).
+
+    The kernels are drawn as flax initializes ``nn.Conv`` (LeCun normal,
+    truncated) from ``seed_or_generator`` (an int seed or a CPU
+    ``torch.Generator``), the biases are zero; ``params`` is the module's
+    parameter dict (what :func:`predict_mask` and :func:`train_step`
+    take), ``tx`` an Adam over it with ``optax.adam``'s defaults (betas
+    0.9, 0.999, eps 1e-8).  ``image_hw`` is the reference's init shape:
+    the network is fully convolutional, so it only has to be divisible by
+    8.  On ``device`` (default ``cuda``)."""
+    if any(int(x) % 8 for x in image_hw):
+        raise ValueError(f"image_hw {tuple(image_hw)}: H and W must be "
+                         "multiples of 8")
+    dev = resolve_device(device)
+    gen = (seed_or_generator if isinstance(seed_or_generator,
+                                           torch.Generator)
+           else torch.Generator().manual_seed(int(seed_or_generator)))
+    model = SegNetLite()
+    with torch.no_grad():
+        for conv in model.convs:
+            _lecun_normal_(conv.weight, gen)
+            conv.bias.zero_()
+    model = model.to(dev).train()
+    params = dict(model.named_parameters())
+    tx = torch.optim.Adam(params.values(), lr=lr, betas=(0.9, 0.999),
+                          eps=1e-8)
+    return model, params, tx
+
+
+def train_step(model: SegNetLite, params, tx, rgb: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    """One Adam step on the mean sigmoid binary cross-entropy of the
+    ground labels.  rgb (B, H, W, 3) f32 in [0, 1], labels (B, H, W)
+    bool; ``params`` and ``tx`` from :func:`create_train_state` (updated
+    in place).  Returns the step's loss, a 0-d tensor (no host read)."""
+    tx.zero_grad(set_to_none=True)
+    logits = torch.func.functional_call(model, params, (rgb,))
+    loss = F.binary_cross_entropy_with_logits(logits,
+                                              labels.to(logits.dtype))
+    loss.backward()
+    tx.step()
+    return loss.detach()
+
+
 def predict_mask(model: SegNetLite, params, rgb: torch.Tensor,
                  thresh: float = 0.0) -> torch.Tensor:
     """rgb (B, H, W, 3) -> (B, H, W) bool ground mask.  ``params`` is a
@@ -187,3 +246,13 @@ def load_pretrained_segnet(path: str | None = None, device=None):
     model.load_state_dict(segnet_state_dict_from_flax(tree))
     model = model.to(dev).eval()
     return model, dict(model.state_dict()), meta
+
+
+def save_segnet(path, params, meta: dict | None = None) -> None:
+    """Write a SegNetLite parameter dict as the committed checkpoint is
+    laid out (flax's tree, ``utils.checkpoint.save_state``), so that
+    :func:`load_pretrained_segnet` reads it back."""
+    from ..convert import segnet_flax_tree_from_state_dict
+    from ..utils.checkpoint import save_state
+
+    save_state(str(path), segnet_flax_tree_from_state_dict(params), meta)

@@ -28,3 +28,8 @@ from .slam import (  # noqa: F401
     slam_step,
 )
 from .pipelined import make_stages, run_pipelined  # noqa: F401
+from .sharded import (  # noqa: F401
+    make_distributed_solve,
+    make_sharded_runner,
+    run_sequence_sharded,
+)

@@ -290,8 +290,13 @@ def _use_fused(cfg: SlamConfig, device: torch.device) -> bool:
 
 
 def _keyframe_update(state: SlamState, det: FrameDetections,
-                     cfg: SlamConfig) -> SlamState:
-    """Insert the current frame as a keyframe and re-solve the window."""
+                     cfg: SlamConfig, solve_impl=None) -> SlamState:
+    """Insert the current frame as a keyframe and re-solve the window.
+
+    ``solve_impl(window, factors) -> window_opt`` replaces the whole
+    windowed-BA stage when given (the hook of the sharded runner,
+    :mod:`.sharded`): the fused solver is then off and the exiting
+    keyframe is marginalized outside it."""
     if cfg.solver not in ("gn", "lm", "dogleg"):
         raise ValueError(f"unknown solver '{cfg.solver}'")
     W, L = cfg.window_size, cfg.max_landmarks
@@ -356,7 +361,8 @@ def _keyframe_update(state: SlamState, det: FrameDetections,
 
     # --- slide the window when full ---
     full = state.n_kf >= W
-    fused = cfg.solver == "gn" and _use_fused(cfg, dev)
+    fused = (solve_impl is None and cfg.solver == "gn"
+             and _use_fused(cfg, dev))
     marg_block = None
     if cfg.marginalize and fused:
         from ..ops.fused_gn import pack_marg
@@ -421,7 +427,9 @@ def _keyframe_update(state: SlamState, det: FrameDetections,
 
     # --- windowed bundle adjustment ---
     factors = _build_factors(state, cfg)
-    if fused:
+    if solve_impl is not None:
+        window_opt = solve_impl(state.window, factors)
+    elif fused:
         from ..ops.fused_gn import fused_gn_solve
 
         if marg_block is not None:
@@ -465,9 +473,11 @@ def _keyframe_update(state: SlamState, det: FrameDetections,
 
 
 def slam_step(state: SlamState, det: FrameDetections, odom_R: torch.Tensor,
-              odom_t: torch.Tensor, cfg: SlamConfig):
+              odom_t: torch.Tensor, cfg: SlamConfig, solve_impl=None):
     """Process one frame.  Returns (state, (R_wc, t_wc) current pose).
-    The keyframe decision is a host ``if`` (one device sync on CUDA)."""
+    The keyframe decision is a host ``if`` (one device sync on CUDA).
+    ``solve_impl`` optionally replaces the BA solve (see
+    :func:`_keyframe_update`)."""
     acc_R, acc_t = se3.se3_compose(state.acc_R, state.acc_t, odom_R, odom_t)
     state = state._replace(acc_R=acc_R, acc_t=acc_t, frame=state.frame + 1)
 
@@ -475,6 +485,6 @@ def slam_step(state: SlamState, det: FrameDetections, odom_R: torch.Tensor,
     ang = torch.linalg.norm(se3.so3_log(acc_R))
     is_kf = (dist > cfg.kf_trans) | (ang > cfg.kf_rot)
     if bool(is_kf):
-        state = _keyframe_update(state, det, cfg)
+        state = _keyframe_update(state, det, cfg, solve_impl)
     R, t = current_pose(state)
     return state, (R, t)

@@ -15,8 +15,9 @@ the whole keyframe graph once at the end:
   Window/Factors problem and re-solves it with ``gn_solve``: the
   closed-form plane terms (the plane-Jacobian kernel on CUDA, once an
   iteration) and the per-op reduced solve ``solve_schur``, as the
-  reference's default.  The reference's keyframe-block-sharded variant
-  over a device mesh is not ported yet.
+  reference's default; with ``mesh=`` it runs keyframe-block-sharded
+  over the mesh's ranks (:func:`..parallel.keyframe_sharded_gn_solve`,
+  the ``jacfwd`` terms, as the reference's mesh branch).
 - :func:`emit_frames` republishes every frame by composing its anchor
   keyframe's smoothed pose with the recorded relative transform.
 
@@ -38,11 +39,6 @@ from ..factors.graph import (
 )
 from ..solver import gn_solve
 from .slam import SlamConfig, _odom_sqrt_info, _plane_sqrt_info
-
-MULTI_GPU_TODO = (
-    "the multi-GPU slice is not ported yet (ROADMAP.md queue 1, item 4: "
-    "throughput runners and multi-GPU)")
-
 
 class TrajectoryRecorder:
     """Host-side keyframe-history log for post-hoc smoothing.
@@ -246,12 +242,24 @@ def smooth_trajectory(
 ):
     """Batch-GN smooth the whole keyframe trajectory on the device of
     ``state``.  Returns (kf_R (N,3,3), kf_t (N,3), stats), numpy poses.
-    ``mesh`` (the reference's keyframe-block-sharded solve) raises
-    ``NotImplementedError``: it is not ported yet, and the call does not
-    fall back to one device."""
+
+    With ``mesh`` (a :class:`~torch.distributed.device_mesh.DeviceMesh`)
+    the linearization runs keyframe-block-sharded with a chain halo
+    exchange (:mod:`..parallel.keyframe_blocks`), the window padded to a
+    multiple of the mesh size; as the reference's mesh branch, it takes
+    the ``jacfwd`` terms without robust weights (``cfg.analytic_planes``
+    and ``cfg.robust`` are not read).  Otherwise the single-device
+    ``gn_solve``."""
     if mesh is not None:
-        raise NotImplementedError(
-            f"smooth_trajectory(mesh=...): {MULTI_GPU_TODO}")
+        from ..parallel.distributed import mesh_axis
+        from ..parallel.keyframe_blocks import keyframe_sharded_gn_solve
+
+        window, factors, N = build_smoothing_problem(
+            rec, state, cfg, pad_multiple=mesh_axis(mesh, axis)[1])
+        w_opt, stats = keyframe_sharded_gn_solve(
+            window, factors, mesh, iters=iters, damping=damping, axis=axis)
+        return (w_opt.R[:N].cpu().numpy(), w_opt.t[:N].cpu().numpy(),
+                stats)
     window, factors, N = build_smoothing_problem(rec, state, cfg,
                                                  pad_multiple=8)
     w_opt, stats = gn_solve(

@@ -98,9 +98,31 @@ reference's libpng codec (``native/``, adaptive row filters):
 ``png_fixture_pixels.npz`` (``rgb``, ``gray16``, and ``*_filters``: the
 filter byte of each row).
 
+``sharded`` (``pop_up_slam_tpu_torch/data/corridor_ref_sharded.npz``):
+the JAX package's multi-device paths on a 2-device CPU mesh
+(``--xla_force_host_platform_device_count``, set by this script before
+JAX starts), compiled once each:
+
+- ``run_sequence_sharded`` over the 144 corridor frames at the ``gn``
+  configuration, block 16: ``R`` / ``t`` per frame, ``frame_n_kf``
+  (``n_kf`` after each frame), the end state's ``n_kf``, ``n_overflow``
+  and ``store_valid``, ``block.*`` (the ``SlamState`` each block starts
+  from, one key per leaf, stacked over the blocks), and the DP pop-up:
+  ``popup_R`` / ``popup_t`` (each frame's predicted pose) and
+  ``popup_valid`` / ``popup_n_points``;
+- the same runner on the small stream of
+  ``tests/test_sharded_runner.py``'s fast test (48x64, 10 frames, W=4,
+  L=16, block 4, the tail padded), keys prefixed ``small.``: its inputs
+  (``masks``, ``gt_R`` / ``gt_t``, ``odom_R`` / ``odom_t``) and the
+  same outputs;
+- ``smooth_trajectory(mesh=)`` on the TUM recorder and state of
+  ``corridor_ref_tum.npz``: ``mesh_kf_R`` / ``mesh_kf_t``;
+- the JAX CLI's ``run --config single_host`` (64 frames, 480x640, the
+  mesh's two devices): its summary, keys prefixed ``cli_single_host.``.
+
 Run from the repository root (no argument writes every file):
 
-    JAX_PLATFORMS=cpu python scripts/make_torch_reference.py [gn] [solvers] [vo] [tum] [batched]
+    JAX_PLATFORMS=cpu python scripts/make_torch_reference.py [gn] [solvers] [vo] [tum] [batched] [sharded]
 """
 
 from __future__ import annotations
@@ -121,6 +143,8 @@ OUT_VO = os.path.join(DATA, "corridor_ref_vo.npz")
 OUT_TUM = os.path.join(DATA, "corridor_ref_tum.npz")
 OUT_BATCHED = os.path.join(DATA, "corridor_ref_batched.npz")
 OUT_PNG = os.path.join(DATA, "png_fixture_pixels.npz")
+OUT_SHARDED = os.path.join(DATA, "corridor_ref_sharded.npz")
+SHARDED_DEVICES = 2    # the CPU mesh of the ``sharded`` references
 TUM_INTRINSICS = (320.0, 320.0, 320.0, 240.0)
 VO_GRID = 16      # stride of the recorded fused-depth grid
 PROBLEM_KW = dict(noise_odom_t=0.05, noise_odom_r=0.02, noise_plane=0.01,
@@ -714,14 +738,196 @@ def write_batched():
     write_png_fixtures()
 
 
+def _unflatten(template, ref, prefix, i=0):
+    """``template`` (a nested NamedTuple) with each leaf replaced by entry
+    ``i`` of the key ``prefix.field.subfield`` of ``ref``."""
+    vals = []
+    for name in template._fields:
+        v = getattr(template, name)
+        key = f"{prefix}.{name}"
+        vals.append(_unflatten(v, ref, key, i) if hasattr(v, "_fields")
+                    else np.asarray(ref[key][i]))
+    return type(template)(*vals)
+
+
+def _run_sharded(state, masks, oR, ot, K, pcfg, scfg, mesh, block):
+    """The JAX ``run_sequence_sharded`` with each block's start state,
+    each frame's ``n_kf`` and the DP pop-up's walls and poses recorded."""
+    import jax
+
+    from pop_up_slam_tpu.pipeline import sharded as jsharded
+
+    blocks, kf, pops = [], {}, []
+    make_runner, slam_step = jsharded.make_sharded_runner, jsharded.slam_step
+    sharded_popup = jsharded.sharded_popup
+
+    def recording_step(st, *args, **kwargs):
+        st, pose = slam_step(st, *args, **kwargs)
+        # unordered (the runner is a multi-device program): keyed by frame
+        jax.debug.callback(lambda f, k: kf.__setitem__(int(f), int(k)),
+                           st.frame, st.n_kf)
+        return st, pose
+
+    def recording_popup(fn, m, R, t, *args, **kwargs):
+        res = sharded_popup(fn, m, R, t, *args, **kwargs)
+        jax.debug.callback(
+            lambda *a: pops.append(tuple(np.asarray(x) for x in a)),
+            res.valid, res.n_points, R, t)
+        return res
+
+    def recording_runner(*args, **kwargs):
+        run = make_runner(*args, **kwargs)
+
+        def rec(st, *a):
+            blocks.append(jax.tree.map(np.asarray, st))
+            out = run(st, *a)
+            jax.block_until_ready(out)
+            jax.effects_barrier()
+            return out
+
+        return rec
+
+    jsharded.make_sharded_runner = recording_runner
+    jsharded.slam_step = recording_step
+    jsharded.sharded_popup = recording_popup
+    try:
+        t_start = time.perf_counter()
+        state, (Rs, ts) = jsharded.run_sequence_sharded(
+            state, masks, oR, ot, K, pcfg, scfg, mesh, block=block,
+            donate=False)
+        jax.block_until_ready(ts)
+        jax.effects_barrier()
+        seconds = time.perf_counter() - t_start
+    finally:
+        jsharded.make_sharded_runner = make_runner
+        jsharded.slam_step = slam_step
+        jsharded.sharded_popup = sharded_popup
+    n = masks.shape[0]
+    assert len(pops) == len(blocks), (len(pops), len(blocks))
+    out = dict(
+        R=np.asarray(Rs, np.float32), t=np.asarray(ts, np.float32),
+        frame_n_kf=np.asarray([kf[f] for f in range(1, n + 1)], np.int32),
+        n_kf=np.asarray(state.n_kf, np.int32),
+        n_overflow=np.asarray(state.n_overflow, np.int32),
+        store_valid=np.asarray(state.store.valid, bool),
+        popup_valid=np.concatenate([p[0] for p in pops])[:n].astype(bool),
+        popup_n_points=np.concatenate([p[1] for p in pops])[:n].astype(
+            np.int32),
+        popup_R=np.concatenate([p[2] for p in pops])[:n].astype(np.float32),
+        popup_t=np.concatenate([p[3] for p in pops])[:n].astype(np.float32))
+    out.update(_flatten("block", blocks))
+    assert np.isfinite(out["t"]).all() and np.isfinite(out["R"]).all()
+    print(f"sharded runner, {n} frames, block {block}: {seconds:.1f} s "
+          f"(compile included); n_kf={int(out['n_kf'])} "
+          f"n_overflow={int(out['n_overflow'])} t[-1]={out['t'][-1]}")
+    return out
+
+
+def _small_stream():
+    """The fast sharded-runner test's stream (48x64, 10 frames)."""
+    import jax
+
+    from pop_up_slam_tpu.geometry import se3
+    from pop_up_slam_tpu.geometry.camera import Intrinsics
+    from pop_up_slam_tpu.io import synthetic
+
+    K = Intrinsics.create(32.0, 32.0, 32.0, 24.0)
+    world = synthetic.corridor_world()
+    Rs, ts = synthetic.corridor_trajectory(11)
+    labels, _ = jax.vmap(lambda R_, t_: synthetic.render_frame(
+        K, R_, t_, world, 48, 64))(Rs, ts)
+    masks = labels[1:] == synthetic.LABEL_GROUND
+    oR, ot = se3.se3_between(Rs[:-1], ts[:-1], Rs[1:], ts[1:])
+    return K, tuple(np.asarray(x) for x in (masks, Rs, ts, oR, ot))
+
+
+def write_sharded():
+    import contextlib
+    import io
+    import json
+
+    import jax
+
+    import pop_up_slam_tpu  # noqa: F401  (full-f32 matmul)
+    from pop_up_slam_tpu import cli as jcli
+    from pop_up_slam_tpu.config import get_config
+    from pop_up_slam_tpu.geometry.camera import Intrinsics
+    from pop_up_slam_tpu.parallel import make_mesh
+    from pop_up_slam_tpu.pipeline import SlamConfig, slam_init
+    from pop_up_slam_tpu.pipeline.smoothing import (
+        TrajectoryRecorder, smooth_trajectory)
+    from pop_up_slam_tpu.popup import popup as jpp
+
+    assert len(jax.devices()) >= SHARDED_DEVICES, jax.devices()
+    mesh = make_mesh(SHARDED_DEVICES)
+    out = {}
+
+    # the small stream (the CPU tests')
+    K, (masks, Rs, ts, oR, ot) = _small_stream()
+    pcfg = jpp.PopupConfig(min_cols=4, smooth_radius=2, nms_radius=3)
+    scfg = SlamConfig(window_size=4, max_landmarks=16,
+                      max_det=pcfg.max_segments + 1, kf_trans=0.0,
+                      kf_rot=0.0)
+    small = _run_sharded(slam_init(scfg, Rs[0], ts[0]), masks, oR, ot, K,
+                         pcfg, scfg, mesh, block=4)
+    small.update(masks=masks, gt_R=Rs, gt_t=ts, odom_R=oR, odom_t=ot)
+    out.update({f"small.{k}": v for k, v in small.items()})
+
+    # the 144 corridor frames at full width
+    masks, oR, ot, R0, t0 = load_inputs()
+    K = Intrinsics.create(320.0, 320.0, 320.0, 240.0)
+    pcfg = jpp.PopupConfig()
+    scfg = SlamConfig(max_det=pcfg.max_segments + 1, kf_trans=0.0,
+                      kf_rot=0.0)
+    out.update(_run_sharded(slam_init(scfg, R0, t0), masks, oR, ot, K, pcfg,
+                            scfg, mesh, block=16))
+
+    # the mesh smoother on the TUM reference's recorder and state
+    tum = np.load(OUT_TUM)
+    tcfg = get_config("tum_fr3").slam
+    rec = TrajectoryRecorder.restore(
+        tcfg, {k[4:]: tum[k] for k in tum.files if k.startswith("rec.")})
+    state = _unflatten(slam_init(tcfg, tum["gt_R"][0], tum["gt_t"][0]),
+                       tum, "state")
+    t_start = time.perf_counter()
+    kf_R, kf_t, _ = smooth_trajectory(rec, state, tcfg, iters=8,
+                                      damping=tcfg.damping, mesh=mesh)
+    print(f"mesh smoother: {time.perf_counter() - t_start:.1f} s; "
+          f"{kf_t.shape[0]} keyframes, "
+          f"{np.abs(kf_t - tum['kf_t']).max():.3g} m from the single-device "
+          "smoother")
+    out.update(mesh_kf_R=np.asarray(kf_R, np.float32),
+               mesh_kf_t=np.asarray(kf_t, np.float32))
+
+    # the CLI's distributed preset
+    buf = io.StringIO()
+    t_start = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        assert jcli.main(["run", "--config", "single_host"]) == 0
+    summary = json.loads(buf.getvalue())
+    print(f"cli single_host: {time.perf_counter() - t_start:.1f} s "
+          f"{json.dumps(summary)}")
+    assert summary["n_devices"] == SHARDED_DEVICES
+    out.update({f"cli_single_host.{k}": np.asarray(v)
+                for k, v in summary.items()})
+
+    np.savez_compressed(OUT_SHARDED, **out)
+    print(f"wrote {OUT_SHARDED}: {os.path.getsize(OUT_SHARDED)} bytes")
+
+
 def main(argv):
-    names = ("gn", "solvers", "vo", "tum", "batched")
+    names = ("gn", "solvers", "vo", "tum", "batched", "sharded")
     which = set(argv) or set(names)
     unknown = which - set(names)
     if unknown:
         raise SystemExit(f"unknown reference(s) {sorted(unknown)}; "
                          f"choose from {', '.join(names)}")
     os.makedirs(DATA, exist_ok=True)
+    if "sharded" in which:
+        # before JAX starts: the sharded references' CPU mesh
+        os.environ["XLA_FLAGS"] = (
+            os.environ.get("XLA_FLAGS", "") +
+            f" --xla_force_host_platform_device_count={SHARDED_DEVICES}")
     if "gn" in which:
         write_gn()
     if "solvers" in which:
@@ -732,6 +938,8 @@ def main(argv):
         write_tum()
     if "batched" in which:
         write_batched()
+    if "sharded" in which:
+        write_sharded()
 
 
 if __name__ == "__main__":

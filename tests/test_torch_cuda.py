@@ -947,3 +947,82 @@ def test_pipelined_on_card_bit_equal_to_sequential(cuda_device):
         assert torch.isfinite(pipe).all()
         if not stale:
             assert torch.equal(pipe, seq)
+
+
+# ---- the multi-device slice (ranks spawned by _torch_dist.run_ranks) ----
+
+def _recorded_problem():
+    """The reference's ``build_corridor_problem`` output recorded in
+    ``corridor_ref_batched.npz``: (window, factors) numpy dicts."""
+    ref = np.load(f"{REPO}/pop_up_slam_tpu_torch/data/"
+                  "corridor_ref_batched.npz")
+    w = {k: ref[f"problem.window.{k}"][0] for k in graph.Window._fields}
+    f = {g: {k: ref[f"problem.factors.{g}.{k}"][0] for k in cls._fields}
+         for g, cls in (("odom", graph.OdomFactors),
+                        ("planes", graph.PlaneFactors),
+                        ("priors", graph.PosePriors))}
+    return w, f
+
+
+def test_nccl_world_of_one_sharded_linearize(cuda_device):
+    """NCCL at a world of one: the sharded linearization (K5 on the whole
+    factor set, launched once) equals the single-device one bit for
+    bit."""
+    from _torch_dist import run_ranks
+
+    w, f = _recorded_problem()
+    (out,) = run_ranks(1, [("lin", "linearize", dict(
+        window=w, factors=f, analytic_planes=True))], backend="nccl",
+        device="cuda")
+    *lin, k5 = out["lin"]
+    assert k5 == 1
+    ref = graph.linearize(convert.window_from_numpy(w, cuda_device),
+                          convert.factors_from_numpy(f, cuda_device),
+                          analytic_planes=True)
+    for a, b in zip(lin, ref):
+        np.testing.assert_array_equal(a, b.cpu().numpy())
+
+
+def test_gloo_two_ranks_distributed_gn_on_card(cuda_device):
+    """Two gloo ranks on the one card: ``distributed_gn_solve`` with K5 on
+    each rank's block (once a GN iteration on each rank), held against
+    the single-device ``gn_solve`` on the card at tests/test_parallel.py's
+    1e-3."""
+    from _torch_dist import run_ranks
+
+    from pop_up_slam_tpu_torch.solver import gn_solve
+
+    w, f = _recorded_problem()
+    res = run_ranks(2, [("gn", "gn", dict(window=w, factors=f, iters=3,
+                                          damping=1e-6,
+                                          analytic_planes=True))],
+                    backend="gloo", device="cuda:0")
+    ref, _ = gn_solve(convert.window_from_numpy(w, cuda_device),
+                      convert.factors_from_numpy(f, cuda_device), iters=3,
+                      damping=1e-6, analytic_planes=True)
+    for out in res:
+        assert out["gn"]["k5"] == 3
+        for k in ("t", "planes"):
+            assert_close(out["gn"][k], getattr(ref, k).cpu().numpy(), 1e-3,
+                         what=k)
+
+
+def test_segnet_train_step_on_card_matches_cpu(cuda_device):
+    """One ``train_step`` from the same initial parameters and batch on
+    the card and on the CPU (bf16 convolutions in both): the loss within
+    5e-3 relative, every gradient within 5e-2 of its largest entry."""
+    from pop_up_slam_tpu_torch.models import create_train_state, train_step
+
+    gen = torch.Generator().manual_seed(0)
+    rgb = torch.rand((8, 96, 128, 3), generator=gen)
+    gt = torch.rand((8, 96, 128), generator=gen) > 0.5
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model, params, tx = create_train_state(1, device=dev)
+        loss = train_step(model, params, tx, rgb.to(dev), gt.to(dev))
+        out[dev.type] = (float(loss), {k: p.grad.cpu().numpy()
+                                       for k, p in params.items()})
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = out["cuda"], out["cpu"]
+    assert abs(l_gpu - l_cpu) <= 5e-3 * abs(l_cpu), (l_gpu, l_cpu)
+    for k, g in g_cpu.items():
+        assert_close(g_gpu[k], g, 5e-2 * float(np.abs(g).max()), what=k)

@@ -166,7 +166,8 @@ def test_port_imports_without_jax():
     package both fail: every module, the monocular and TUM slices'
     included, and the slice of the batched and pipelined runners, the
     segmenter network, the native loader, the problem builder and the
-    export."""
+    export, the multi-device strategies, the sharded runner and the
+    segmenter's training script."""
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['pop_up_slam_tpu'] = None; "
             "import pop_up_slam_tpu_torch, pop_up_slam_tpu_torch.pipeline, "
@@ -191,7 +192,14 @@ def test_port_imports_without_jax():
             "pop_up_slam_tpu_torch.io.native_loader, "
             "pop_up_slam_tpu_torch.io.problems, "
             "pop_up_slam_tpu_torch.viz, pop_up_slam_tpu_torch.viz.export, "
-            "pop_up_slam_tpu_torch.models; "
+            "pop_up_slam_tpu_torch.models, "
+            "pop_up_slam_tpu_torch.parallel, "
+            "pop_up_slam_tpu_torch.parallel.distributed, "
+            "pop_up_slam_tpu_torch.parallel.map_blocks, "
+            "pop_up_slam_tpu_torch.parallel.keyframe_blocks, "
+            "pop_up_slam_tpu_torch.parallel.multihost, "
+            "pop_up_slam_tpu_torch.pipeline.sharded; "
+            "sys.path.insert(0, 'scripts'); import train_segnet_torch; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120,

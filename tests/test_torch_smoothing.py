@@ -14,7 +14,8 @@ package on the CPU.
   stamp changed: the stale factors are dropped, the reference's fault
   mirrored);
 - ``smooth_trajectory`` (8 iterations) and ``emit_frames``: keyframe and
-  frame poses within 1e-4; ``mesh=`` raises;
+  frame poses within 1e-4; ``mesh=`` with something other than a device
+  mesh raises;
 - ``recover_marginals`` on noisy corridor BA systems at
   ``tests/test_solver_ext.py``'s sizes (``_torch_parity.ba_problem``,
   seeds 9, 10, 11, W=6, nine landmark slots: pose 0 gauge-fixed, three
@@ -164,7 +165,10 @@ def test_smooth_trajectory_matches_reference(orbit, monkeypatch):
 
 
 def test_smooth_trajectory_mesh_raises(orbit):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    """``mesh=`` takes the keyframe-sharded solve (held against the
+    reference's in ``tests/test_torch_sharded.py``): an object that is
+    not a device mesh raises, with no fall back to one device."""
+    with pytest.raises(AttributeError, match="get_group"):
         tsm.smooth_trajectory(orbit["rec_t"], orbit["state"],
                               orbit["cfg_t"], mesh=object())
 

@@ -28,7 +28,8 @@ frames) and ``tests/test_tum_runner.py``'s runner widths (W=4, L=32,
   trajectory exactly (the port against itself);
 - the presets field by field; the CLI's ``popup_demo`` mode against the
   reference CLI's summary (recorded in ``corridor_ref_tum.npz``), its
-  ``tum`` mode, and the unported ``distributed`` presets raising.
+  ``tum`` mode, and the ``distributed`` presets refusing more devices
+  than the process group has.
 
 The reference runner is run once per odometry mode in a module fixture,
 with its linearization, marginals and smoother solve compiled by
@@ -516,9 +517,12 @@ def test_cli_tum_and_unported_modes(tree, tmp_path):
         "--profile-dir", str(tmp_path / "prof")])
     assert rc == 0 and out["frames"] == 6 and np.isfinite(out["ate_rmse_m"])
     assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+    # the distributed presets (run in ranks in tests/test_torch_sharded.py)
+    # refuse a mesh larger than the process group before starting one
     for preset in ("single_host", "multi_host"):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            tcli.main(["run", "--config", preset, "--device", "cpu"])
+        with pytest.raises(ValueError, match="no process group"):
+            tcli.main(["run", "--config", preset, "--device", "cpu",
+                       "--devices", "2"])
 
 
 def test_entry_points_raise_without_cuda(tree, tmp_path):
