@@ -13,8 +13,14 @@ Port of ``pop_up_slam_tpu/runners/tum_runner.py``.  Odometry sources
   plane alignment (``pipeline.make_vo_frame_fn``); no ground truth is
   consumed anywhere.
 
-Segmentation source: precomputed masks in ``seg/`` when present,
-otherwise the classical floor-color model.  The frame step (pop-up,
+Segmentation source, chosen frame by frame from what the tree holds:
+the frame's precomputed mask in ``seg/`` when there is one, otherwise
+the classical floor-color model on the frame's RGB image.  Each frame
+decodes only the image its segmentation reads: a frame with a mask
+never opens its RGB file (so a missing or broken RGB file beside a mask
+raises nothing), and the RGB image is decoded only for the classical
+segmenter.  The summary's ``decoded`` counts the images of each kind
+the run decoded (``rgb``, ``seg``).  The frame step (pop-up,
 detections, ``slam_step``) runs on the device the caller picks (CUDA
 unless ``device="cpu"``); the trajectory bookkeeping, the recorder and
 the evaluation run on the host, reading the device once a frame for the
@@ -78,11 +84,12 @@ def run_tum_sequence(cfg, odometry: str = "gt_perturb",
                      device=None,
                      out: dict | None = None):
     """Run a TUM sequence end to end; returns the reference's summary
-    dict.  ``out``, when given, receives the run's internals for a
-    caller that holds them against a reference: ``est_R`` / ``est_t``
-    (the filtering trajectory), ``recorder``, ``state`` (the final
-    ``SlamState``), ``kf_R`` / ``kf_t`` (the smoothed keyframes, when
-    smoothed), ``marginals`` and ``frame_ids``."""
+    dict and ``decoded``.  ``out``, when given, receives the run's
+    internals for a caller that holds them against a reference:
+    ``est_R`` / ``est_t`` (the filtering trajectory), ``recorder``,
+    ``state`` (the final ``SlamState``), ``kf_R`` / ``kf_t`` (the
+    smoothed keyframes, when smoothed), ``marginals`` and
+    ``frame_ids``."""
     dev = resolve_device(device)
     seq = tum.load_sequence(cfg.sequence_dir)
     K = Intrinsics.create(cfg.fx, cfg.fy, cfg.cx, cfg.cy, device=dev)
@@ -113,6 +120,7 @@ def run_tum_sequence(cfg, odometry: str = "gt_perturb",
     est_R = [gt_R[0]]
     est_t = [gt_t[0]]
     prev_rel = (np.eye(3), np.zeros(3))
+    decoded = {"rgb": 0, "seg": 0}
 
     def carry():
         return vo_state if odometry == "plane_vo" else state
@@ -151,13 +159,15 @@ def run_tum_sequence(cfg, odometry: str = "gt_perturb",
     for k in range(start_k, n):
         i = frame_ids[k]
         timer.start("io")
-        rgb = tum.load_image(seq, seq.rgb_files[i])
         if seq.seg_files and seq.seg_files[i]:
             mask = tum.load_image(seq, seq.seg_files[i]) > 127
+            decoded["seg"] += 1
             if mask.ndim == 3:
                 mask = mask[..., 0]
             mask = _to_device(np.ascontiguousarray(mask), dev)
         else:
+            rgb = tum.load_image(seq, seq.rgb_files[i])
+            decoded["rgb"] += 1
             mask = classical_ground_mask(_to_device(rgb, dev))
         _sync(dev)
         timer.stop()
@@ -264,4 +274,5 @@ def run_tum_sequence(cfg, odometry: str = "gt_perturb",
         "pose_trans_std_m": round(trans_std, 5),
         "pose_rot_std_rad": round(rot_std, 5),
         "stage_timing": timer.summary(),
+        "decoded": decoded,
     }
