@@ -32,12 +32,16 @@
    sha256 of its (S, x) on a seeded random system; its in-kernel time
    from its stamps; K3b (sparse Schur product, then K4) at W=23, L=9,
    W=24, L=64 and W=40, L=64, two launches bit-identical, the sha256 of
-   its S at L=64; K2 also at ``max_depth=40`` (the fused monocular
-   path's clip) on the four 480x640 frames; the per-factor ``jacfwd``
-   linearization (``analytic_planes=False, analytic_poses=False``)
-   against the closed form on the mid-sequence state and a random
-   system (its gradients against the f64 closed form).  One JSON line
-   per case.
+   its S at L=64; K6 and K7 (the LM iteration's assemble and trial
+   kernels) against their plain versions on the mid-sequence state and
+   on that state moved off its optimum, with no, huber and cauchy robust
+   kernels (K7 also on a rejected step), two launches bit-identical,
+   timed as the LM route calls them (K7 with a step and cost-only); K2
+   also at ``max_depth=40`` (the fused monocular path's clip) on the
+   four 480x640 frames; the per-factor ``jacfwd`` linearization
+   (``analytic_planes=False, analytic_poses=False``) against the closed
+   form on the mid-sequence state and a random system (its gradients
+   against the f64 closed form).  One JSON line per case.
    Then the pop-up on the card from the pose the reference gave its own
    pop-up on each main-path frame (``popup_R`` / ``popup_t``): per frame,
    whether ``valid`` and ``n_points`` equal the reference's (held on all
@@ -54,8 +58,9 @@
 4. Drives the solver paths the same way, each against its committed JAX
    run in ``corridor_ref_solvers.npz``: ``solver="lm"`` and
    ``solver="dogleg"`` over the 144 frames at the production widths (K3a
-   and K5 twice per keyframe), and ``solver="lm"`` with ``window_size=24``
-   over the first 48 frames (6W = 144: K3b, K4 and K5 twice per keyframe).
+   and K5 twice per keyframe; LM's K6 twice and K7 three times), and
+   ``solver="lm"`` with ``window_size=24`` over the first 48 frames
+   (6W = 144: K3b, K4 and K5 twice per keyframe).
    Each is held as ``run_path`` says: the free run over ``frames_held``
    (the frames before its pop-up first finds another set of valid walls
    than the reference's), its accept decisions before the pop-up's
@@ -122,7 +127,8 @@
 9. Prints the ``{"kernels": [...]}`` line (one row per kernel; K4's row
    is lm24's n=144, its other timed sizes, which no path launches, are
    nested under ``other_n`` with 0 launches; K5's row also carries its
-   time at the smoother's shape), the card line, and last
+   time at the smoother's shape, K7's its cost-only launch), the card
+   line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises and the script exits non-zero without the last
@@ -156,6 +162,12 @@ K5_TOL = 1e-5             # rtol = atol, as tests/test_ops.py plane terms
 K3A_TOL = (1e-4, 1e-4)    # (rtol, atol) on the steps, tests/test_ops.py
 K3A_S_TOL = (1e-5, 1e-4)  # (rtol, atol) on S
 K3B_TOL = (1e-3, 5e-3)    # tiled route: a 138-240-dim f32 factorization
+# K6 and K7 against their plain versions, each output within LM_TOL of its
+# largest entry (at least 1), as tests/test_torch_lm_fused.py; a decision
+# the two take differently is a rounding tie when the step changes the
+# cost by less than LM_TIE of max(cost, 1)
+LM_TOL = 1e-5
+LM_TIE = 1e-4
 # jacfwd vs closed-form linearization: each output within JACFWD_TOL of
 # its largest entry.  A plane factor whose measured normal lies within
 # 2.6 degrees of an axis (1 - max|n_k| < NEAR_AXIS) has residual rows
@@ -360,6 +372,116 @@ def schur_product_ops(lin, window):
     sub = (21 * int(np.diag(touched).sum())
            + 36 * int(np.triu(touched, 1).sum()))
     return prod + sub, 6 * int(free.sum())
+
+
+# K6 and K7 (ops/csrc/lm_step.cu): the pose factors' pieces as
+# pose_factor composes them, a plane factor's residual alone (K5's
+# prediction, measured plane, tangent columns, residual, A r), and rho
+# (the cheaper branch)
+_ODOM_RESIDUAL = 2 * _BETWEEN + _SE3_LOG + _mm(6, 6, 1)
+_PRIOR_RESIDUAL = _BETWEEN + _SE3_LOG + _mm(6, 6, 1)
+_POSE_JJ = _JR_INV + _mm(6, 6, 6)                    # A J_r^-1
+_POSE_JI = _BETWEEN + _ADJOINT + _mm(6, 6, 6)        # -Jj Ad
+_PLANE_RESIDUAL = 51 + 19 + _NORMAL_COLS + 11 + _MV3
+_RHO = {"none": 0, "huber": 3, "cauchy": 3}
+
+
+def _irls(kind: str, rows: int, cols: int) -> int:
+    """One factor's IRLS weighting: |r|^2, the weight, its square root,
+    r and J scaled; none where the kernel is ``none`` (weight 1)."""
+    if kind == "none":
+        return 0
+    return 2 * rows - 1 + _ROBUST[kind] + 1 + rows * (1 + cols)
+
+
+def _a_bytes(A, n: int, d: int) -> int:
+    """Bytes of a stack of n (d, d) sqrt-info matrices as the kernels read
+    them: one matrix where it is broadcast."""
+    return 4 * d * d * (1 if A.stride() == (0, d, 1) else n)
+
+
+def lm_counts(window, factors):
+    """What K6's and K7's work depends on: the valid factors in range,
+    the free poses, the valid landmarks, and per landmark the distinct
+    free poses observing it (its nonzero Hpl blocks on free rows)."""
+    W, L = window.window_size, window.max_landmarks
+    free = (window.pose_valid & ~window.pose_fixed).cpu().numpy()
+    pf, od, pr = factors.planes, factors.odom, factors.priors
+    pp, pl = pf.pose_idx.cpu().numpy(), pf.lm_idx.cpu().numpy()
+    pv = pf.valid.cpu().numpy() & (pp >= 0) & (pp < W) & (pl >= 0) & (
+        pl < L)
+    oi, oj = od.i.cpu().numpy(), od.j.cpu().numpy()
+    ov = od.valid.cpu().numpy() & (oi >= 0) & (oi < W) & (oj >= 0) & (
+        oj < W)
+    pi = pr.idx.cpu().numpy()
+    prv = pr.valid.cpu().numpy() & (pi >= 0) & (pi < W)
+    n_l = np.array([len({int(p) for p in pp[pv & (pl == l)] if free[p]})
+                    for l in range(L)], np.int64)
+    return dict(W=W, L=L, F=pl.shape[0], O=oi.shape[0], P=pi.shape[0],
+                n_pf=int(pv.sum()), n_od=int(ov.sum()), n_pr=int(prv.sum()),
+                n_free=int(free.sum()),
+                n_lmv=int(window.lm_valid.cpu().numpy().sum()), n_l=n_l)
+
+
+def k6_work(window, factors, robust):
+    """(bytes, operations) of one K6 launch: the poses, the masks, the
+    wiring, K5's terms and the pose factors read once, K3a's operands,
+    Hll^-1 and bl written once; operations: IRLS on the plane terms, the
+    pose factors' residuals and Jacobians with theirs, the normal
+    equations (as K1's), (Hll + lambda I)^-1 per observed landmark, B and
+    rhs on the nonzero blocks of free poses."""
+    c = lm_counts(window, factors)
+    W, L, F, O, P = c["W"], c["L"], c["F"], c["O"], c["P"]
+    od, pr = factors.odom, factors.priors
+    nbytes = (4 * 12 * W + 2 * W + L + F * (4 + 4 + 1) + 4 * 30 * F
+              + O * (4 + 4 + 36 + 12 + 1) + _a_bytes(od.sqrt_info, O, 6)
+              + P * (4 + 36 + 12 + 1) + _a_bytes(pr.sqrt_info, P, 6) + 4
+              + 4 * (36 * W * W + 2 * 18 * W * L + 12 * W + 12 * L))
+    n_pf, n_od, n_pr = c["n_pf"], c["n_od"], c["n_pr"]
+    n_l = c["n_l"]
+    blocks, n_lm = int(n_l.sum()), int((n_l > 0).sum())
+    lin = (n_pf * _irls(robust.plane.kind, 3, 9)
+           + n_od * (_ODOM_RESIDUAL + _POSE_JJ + _POSE_JI
+                     + _irls(robust.odom.kind, 6, 12))
+           + n_pr * (_PRIOR_RESIDUAL + _POSE_JJ
+                     + _irls(robust.prior.kind, 6, 6)))
+    normal = (n_od * (2 * _sym(6, 6) + _mm(6, 6, 6) + 2 * _mm(6, 6, 1))
+              + n_pr * (_sym(6, 6) + _mm(6, 6, 1))
+              + n_pf * (_sym(6, 3) + _mm(6, 3, 3) + _sym(3, 3)
+                        + _mm(6, 3, 1) + _mm(3, 3, 1))
+              + n_lm * (3 + _INV3))
+    reduce = blocks * (_mm(6, 3, 3) + _mm(6, 3, 1)) + 6 * c["n_free"]
+    return nbytes, lin + normal + reduce
+
+
+def k7_work(window, factors, robust, step: bool = True):
+    """(bytes, operations) of one K7 launch: the window, its masks and
+    every factor read once, with a step also x, G, Hll^-1 and bl read and
+    the selected window written; operations: with a step the
+    back-substitution on the nonzero blocks, the step norm and the
+    retraction (as K1's), then every valid factor's residual and rho and
+    their sum."""
+    c = lm_counts(window, factors)
+    W, L, F, O, P = c["W"], c["L"], c["F"], c["O"], c["P"]
+    pf, od, pr = factors.planes, factors.odom, factors.priors
+    nbytes = (4 * (12 * W + 4 * L) + 2 * W + L
+              + F * (4 + 4 + 16 + 1) + _a_bytes(pf.sqrt_info, F, 3)
+              + O * (4 + 4 + 36 + 12 + 1) + _a_bytes(od.sqrt_info, O, 6)
+              + P * (4 + 36 + 12 + 1) + _a_bytes(pr.sqrt_info, P, 6) + 8)
+    n_pf, n_od, n_pr = c["n_pf"], c["n_od"], c["n_pr"]
+    cost = (n_pf * (_PLANE_RESIDUAL + 5 + _RHO[robust.plane.kind])
+            + n_od * (_ODOM_RESIDUAL + 11 + _RHO[robust.odom.kind])
+            + n_pr * (_PRIOR_RESIDUAL + 11 + _RHO[robust.prior.kind])
+            + n_pf + n_od + n_pr)
+    if not step:
+        return nbytes, cost
+    nbytes += 4 * (6 * W + 18 * W * L + 12 * L) + 9 + 4 * (12 * W + 4 * L)
+    n_l = c["n_l"]
+    n_lm, n = int((n_l > 0).sum()), 6 * c["n_free"]
+    back = float((36 * n_l + 3 + _MV3)[n_l > 0].sum())
+    retract = c["n_free"] * (_SE3_EXP + _COMPOSE) + c["n_lmv"] * (
+        _TANGENT4 + 24 + _PLANE_NORMALIZE)
+    return nbytes, cost + back + 2 * (n + 3 * n_lm) + retract
 
 
 def random_system(torch, W, L, F, seed, dev):
@@ -784,6 +906,154 @@ def check_k3a_equals_k3b(torch, ks, graph, dev):
                           "max_abs_diff": float((S_a - S_b).abs().max()),
                           "pass": same}))
         assert same, f"K3a S differs from K3b's on {name}"
+
+
+def _scaled_err(x, y) -> float:
+    """max |x - y| over max(max |y|, 1), in f64."""
+    d = (x.double() - y.double()).abs().max()
+    return float(d / y.double().abs().max().clamp(min=1.0))
+
+
+def check_k6_k7(torch, ks, pj, lm_step, gn, window, factors, robust):
+    """K6 (``lm_assemble``) against ``lm_assemble_plain`` on all seven
+    operands, and K7 (``lm_trial``) against ``lm_trial_plain`` on the
+    first cost, the step norm, the decision, the next lambda (bit for
+    bit) and cost, and the selected window, each within LM_TOL of its
+    largest entry, at the LM path's shapes (W=8, L=64, F=72, O=7, P=1):
+    the state with the path's robust kernels, and the state moved off its
+    optimum by a seeded step (so a step lowers the cost clearly) with no,
+    huber and cauchy kernels.  K7 also on a first cost no step can lower
+    (rejected: the window back bit for bit, lambda x 10), and two
+    launches of each bit-identical.  Times the route's calls (the factors
+    packed once) and the plain versions.  Returns ((K6 worst, timing),
+    (K7 worst, timing))."""
+    from pop_up_slam_tpu_torch.factors.robust import (RobustConfig,
+                                                      RobustKernel)
+
+    dev = window.t.device
+    W, L = window.window_size, window.max_landmarks
+    g = torch.Generator().manual_seed(15)
+    moved = gn.apply_update(
+        window, (0.02 * torch.randn(W, 6, generator=g)).to(dev),
+        (0.01 * torch.randn(L, 3, generator=g)).to(dev))
+    cases = (("state", window, robust),
+             ("state_moved_none", moved, RobustConfig()),
+             ("state_moved_huber", moved,
+              RobustConfig(*(RobustKernel("huber", 2.0),) * 3)),
+             ("state_moved_cauchy", moved,
+              RobustConfig(*(RobustKernel("cauchy", 3.0),) * 3)))
+    lam0 = 1e-5
+    e6 = e7 = 0.0
+    for name, w, rb in cases:
+        lam = torch.full((), lam0, device=dev)
+        terms = pj.plane_terms(w, factors.planes)
+        ops_k = lm_step.lm_assemble(w, factors, terms, lam, rb)
+        ops_p = lm_step.lm_assemble_plain(w, factors, lam, rb)
+        errs = {f: _scaled_err(a, b)
+                for f, a, b in zip(ops_k._fields, ops_k, ops_p)}
+        again = lm_step.lm_assemble(w, factors, terms, lam, rb)
+        same = all(torch.equal(a, b) for a, b in zip(ops_k, again))
+        ok = max(errs.values()) <= LM_TOL and same and torch.equal(
+            ops_k.pm, ops_p.pm)
+        print(json.dumps({"check": "K6", "case": name, "scaled_err": errs,
+                          "tol": LM_TOL, "two_launches_bit_identical": same,
+                          "pass": ok}))
+        assert ok, f"K6 {name}"
+        e6 = max(e6, max(errs.values()))
+
+        st_k = lm_step.new_stats(1, dev)
+        lm_step.lm_trial(w, factors, st_k, 0, lam0=lam0, robust=rb)
+        st_p = lm_step.new_stats(1, dev)
+        lm_step.lm_trial_plain(w, factors, st_p, 0, lam0=lam0, robust=rb)
+        cost0 = _scaled_err(st_k.costs[:1], st_p.costs[:1])
+        lams0 = torch.equal(st_k.lams[:1], st_p.lams[:1])
+        _, x = ks.schur_reduce_small(ops_k.Hpp, ops_k.B, ops_k.G, ops_k.rhs,
+                                     ops_k.pm, st_k.lams[0])
+        st_p = lm_step.LMStats(*(t.clone() for t in st_k))
+        w_k = lm_step.lm_trial(w, factors, st_k, 0, (x, ops_k), robust=rb)
+        w_p = lm_step.lm_trial_plain(w, factors, st_p, 0, (x, ops_k),
+                                     robust=rb)
+        c0, c1 = float(st_p.costs[0]), float(st_p.costs[1])
+        margin = abs(c0 - c1) / max(abs(c0), 1.0)
+        acc_k, acc_p = bool(st_k.accepted[0]), bool(st_p.accepted[0])
+        line = {"check": "K7", "case": name, "cost0_scaled_err": cost0,
+                "lam0_equal": lams0, "norm_scaled_err": _scaled_err(
+                    st_k.norms, st_p.norms), "accepted": [acc_k, acc_p],
+                "cost_change": margin, "tol": LM_TOL, "tie": LM_TIE}
+        errs = [cost0, line["norm_scaled_err"]]
+        ok = lams0
+        if acc_k == acc_p:
+            line["lams_equal"] = torch.equal(st_k.lams, st_p.lams)
+            line["cost_scaled_err"] = _scaled_err(st_k.costs, st_p.costs)
+            line["window_scaled_err"] = max(
+                _scaled_err(a, b) for a, b in zip(w_k[:3], w_p[:3]))
+            errs += [line["cost_scaled_err"], line["window_scaled_err"]]
+            ok = ok and line["lams_equal"]
+        else:
+            ok = ok and margin < LM_TIE
+        again = lm_step.lm_trial(w, factors, lm_step.LMStats(
+            *(t.clone() for t in st_p)), 0, (x, ops_k), robust=rb)
+        line["two_launches_bit_identical"] = all(
+            torch.equal(a, b) for a, b in zip(w_k[:3], again[:3]))
+        # a first cost no step can lower: rejected, the window kept
+        st_r = lm_step.LMStats(*(t.clone() for t in st_k))
+        st_r.costs[0] = 0.0
+        w_r = lm_step.lm_trial(w, factors, st_r, 0, (x, ops_k), robust=rb)
+        line["reject_holds"] = (
+            not bool(st_r.accepted[0]) and float(st_r.costs[1]) == 0.0
+            and torch.equal(st_r.lams[1], torch.clamp(st_r.lams[0] * 10.0,
+                                                      1e-9, 1e6))
+            and all(torch.equal(a, b) for a, b in zip(w_r[:3], w[:3])))
+        line["scaled_err"] = max(errs)
+        ok = (ok and max(errs) <= LM_TOL and line["reject_holds"]
+              and line["two_launches_bit_identical"])
+        line["pass"] = ok
+        print(json.dumps(line))
+        assert ok, f"K7 {name}"
+        e7 = max(e7, max(errs))
+
+    # times and work on the state, as the route calls the kernels
+    lam = torch.full((), lam0, device=dev)
+    packed = lm_step.pack(window, factors, robust)
+    terms = pj.plane_terms(window, factors.planes)
+    ops = lm_step.lm_assemble(window, factors, terms, lam, robust, packed)
+    stats = lm_step.new_stats(1, dev)
+    lm_step.lm_trial(window, factors, stats, 0, lam0=lam0, robust=robust,
+                     packed=packed)
+    _, x = ks.schur_reduce_small(ops.Hpp, ops.B, ops.G, ops.rhs, ops.pm,
+                                 stats.lams[0])
+
+    def k6():
+        lm_step.lm_assemble(window, factors, terms, lam, robust, packed)
+
+    def k7():
+        lm_step.lm_trial(window, factors, stats, 0, (x, ops), robust=robust,
+                         packed=packed)
+
+    def k7_cost():
+        lm_step.lm_trial(window, factors, stats, 0, lam0=lam0,
+                         robust=robust, packed=packed)
+
+    k6_t = dict(
+        ms=_time_ms(k6), plain_ms=_time_ms(lambda: lm_step.lm_assemble_plain(
+            window, factors, lam, robust), n=10, warm=2),
+        library_ms=None, work=k6_work(window, factors, robust),
+        err_scale="each output's max(max |entry|, 1)")
+    cost_work = k7_work(window, factors, robust, step=False)
+    b_ms, b_by = _bound(*cost_work)
+    k7_t = dict(
+        ms=_time_ms(k7), plain_ms=_time_ms(lambda: lm_step.lm_trial_plain(
+            window, factors, stats, 0, (x, ops), robust=robust), n=10,
+            warm=2),
+        library_ms=None, work=k7_work(window, factors, robust),
+        err_scale="each output's max(max |entry|, 1)",
+        cost_only={"ms": _time_ms(k7_cost),
+                   "plain_ms": _time_ms(lambda: lm_step.lm_trial_plain(
+                       window, factors, stats, 0, lam0=lam0, robust=robust),
+                       n=10, warm=2),
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "bytes": cost_work[0], "operations": cost_work[1]})
+    return (e6, k6_t), (e7, k7_t)
 
 
 def check_k3b(torch, ks, cholesky, graph, dev):
@@ -2754,6 +3024,7 @@ def main() -> int:
     from pop_up_slam_tpu_torch.ops import fused_gn
     from pop_up_slam_tpu_torch.ops import plane_jacobians as pj
     from pop_up_slam_tpu_torch.ops import schur as ks
+    from pop_up_slam_tpu_torch.ops import lm_step
     from pop_up_slam_tpu_torch.pipeline import (
         SlamConfig, run_sequence_chunked, slam_init,
     )
@@ -2815,6 +3086,9 @@ def main() -> int:
                                f_mid, scfg.robust)
     k3b_err, k3b_t = check_k3b(torch, ks, cholesky, graph,
                                torch.device("cuda"))
+    (k6_err, k6_t), (k7_err, k7_t) = check_k6_k7(
+        torch, ks, pj, lm_step, solver.gauss_newton, st_mid.window, f_mid,
+        scfg.robust)
     check_jacfwd(torch, graph, pj, st_mid.window, f_mid, scfg.robust,
                  "state_W8_L64")
     check_jacfwd(torch, graph, pj, *random_system(torch, 8, 64, 72, 5,
@@ -2828,7 +3102,9 @@ def main() -> int:
                 "chol_solve": cholesky.chol_solve,
                 "schur_reduce_small": ks.schur_reduce_small,
                 "schur_gemm": ks.schur_gemm,
-                "plane_terms": pj.plane_terms}
+                "plane_terms": pj.plane_terms,
+                "lm_assemble": lm_step.lm_assemble,
+                "lm_trial": lm_step.lm_trial}
     masks_d = torch.as_tensor(masks, device="cuda")
     inputs = (masks_d, oR, ot, R0, t0, K, pcfg)
     n = masks.shape[0]
@@ -2843,7 +3119,8 @@ def main() -> int:
     phase_s["gn_path"] = time.perf_counter() - t_ph
     assert paths["gn"]["fused_gn_solve"] == n, paths["gn"]
     assert paths["gn"]["depth_render"] == n, paths["gn"]
-    for k in ("schur_reduce_small", "schur_gemm", "plane_terms"):
+    for k in ("schur_reduce_small", "schur_gemm", "plane_terms",
+              "lm_assemble", "lm_trial"):
         assert paths["gn"][k] == 0, paths["gn"]
     for name in ("lm", "dogleg"):
         t_ph = time.perf_counter()
@@ -2855,6 +3132,11 @@ def main() -> int:
         c = paths[name]
         assert c["schur_reduce_small"] == c["plane_terms"] == 2 * n, c
         assert c["fused_gn_solve"] == 0 and c["schur_gemm"] == 0, c
+        # LM's kernel route: K6 an iteration, K7 an iteration and once
+        # for the first cost; dog-leg stays per-op
+        lm = name == "lm"
+        assert c["lm_assemble"] == (2 * n if lm else 0), c
+        assert c["lm_trial"] == (3 * n if lm else 0), c
     n24 = 48
     t_ph = time.perf_counter()
     paths["lm24"] = run_path(torch, "lm24", slam_mod, offline, se3, pp,
@@ -2865,7 +3147,7 @@ def main() -> int:
     c = paths["lm24"]
     assert c["schur_gemm"] == c["chol_solve"] == 2 * n24, c
     assert c["plane_terms"] == 2 * n24 and c["schur_reduce_small"] == 0, c
-    assert c["fused_gn_solve"] == 0, c
+    assert c["fused_gn_solve"] == 0 and c["lm_assemble"] == 0, c
 
     # ---- 5. the monocular paths ----
     ref_vo = np.load(os.path.join(ref_dir, "corridor_ref_vo.npz"))
@@ -2985,6 +3267,8 @@ def main() -> int:
     k4 = k4_row(k4_path_n)
     k4["other_n"] = [k4_row(n, on_path=False) for n in K4_TIMED
                      if n != k4_path_n]
+    k5 = row("K5 plane_terms", "plane_terms", "lm", src + "plane_terms.cu",
+             "pop_up_slam_tpu/ops/plane_jacobians.py:315", k5_err, k5_t)
     kernels = [
         row("K1 fused_gn_solve", "fused_gn_solve", "gn", src + "fused_gn.cu",
             "pop_up_slam_tpu/ops/fused_gn.py:795", k1_err, k1_t),
@@ -2996,11 +3280,16 @@ def main() -> int:
             "pop_up_slam_tpu/ops/schur_pallas.py:117", k3a_err, k3a_t),
         row("K3b schur_gemm", "schur_gemm", "lm24", src + "schur_reduce.cu",
             "pop_up_slam_tpu/ops/schur_pallas.py:81", k3b_err, k3b_t),
-        row("K5 plane_terms", "plane_terms", "lm", src + "plane_terms.cu",
-            "pop_up_slam_tpu/ops/plane_jacobians.py:315", k5_err, k5_t),
+        k5,
+        row("K6 lm_assemble", "lm_assemble", "lm", src + "lm_step.cu",
+            "none (the per-op linearize and reduce_operands)", k6_err,
+            k6_t),
+        row("K7 lm_trial", "lm_trial", "lm", src + "lm_step.cu",
+            "none (the per-op back-substitution, apply_update, "
+            "total_cost, accept/reject)", k7_err, k7_t),
     ]
     b_ms, b_by = _bound(*k5_smooth_t["work"])
-    kernels[-1]["smoother_shape"] = {
+    k5["smoother_shape"] = {
         "W": w_smooth.window_size, "F": int(pf_smooth.valid.shape[0]),
         "launches_tum": paths["tum"]["plane_terms"],
         "ms": k5_smooth_t["ms"], "device_ms": k5_smooth_t["device_ms"],

@@ -9,7 +9,9 @@ version (used for CPU tensors):
                          solve, one launch) and K3b (the sparse Schur
                          product over tiles of whole poses, followed by
                          K4), the LM / dog-leg reduced solve;
-- :mod:`plane_jacobians` — K5, the closed-form plane-factor Jacobians.
+- :mod:`plane_jacobians` — K5, the closed-form plane-factor Jacobians;
+- :mod:`lm_step`       — K6 and K7, the LM iteration's assembly and its
+                         trial step around K5 and K3a.
 
 Kernels are built from ``csrc/`` at first use (:mod:`._build`); nothing
 is compiled or loaded at import.
@@ -19,6 +21,7 @@ from . import (  # noqa: F401
     cholesky,
     depth_render,
     fused_gn,
+    lm_step,
     plane_jacobians,
     schur,
 )

@@ -24,7 +24,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("chol_solve.cu", "depth_render.cu", "fused_gn.cu",
+SOURCES = ("chol_solve.cu", "depth_render.cu", "fused_gn.cu", "lm_step.cu",
            "plane_terms.cu", "schur_reduce.cu")
 HEADERS = ("chol.cuh", "lie.cuh", "plane_factor.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -42,6 +42,9 @@ _SIGNATURES = {
     "popup_plane_terms": [_P] * 9 + [_I] * 4 + [_P, _P],
     "popup_schur_reduce_small": [_P] * 8 + [_I, _I, _P, _P],
     "popup_schur_gemm": [_P] * 4 + [_I, _I, _P],
+    "popup_lm_smem_bytes": [_I] * 6,
+    "popup_lm_assemble": [_P] * 4,
+    "popup_lm_trial": [_P] * 4,
 }
 
 _lib = None

@@ -10,7 +10,10 @@ fixed-shape state:
 5. on a keyframe: slide the window, record the odometry factor and the
    frame's plane factors, and re-solve the window: ``solver="gn"`` with
    the fused GN kernel on CUDA (the per-op Gauss-Newton path otherwise);
-   ``"lm"`` / ``"dogleg"`` per-op, with the plane-Jacobian kernel in each
+   ``"lm"`` at the Schur kernel's sizes on CUDA as four launches an
+   iteration (the plane-Jacobian kernel, the assemble kernel, the Schur
+   kernel, the trial kernel: ``lm_solve_kernels``); ``"dogleg"``, and
+   ``"lm"`` elsewhere, per-op, with the plane-Jacobian kernel in each
    linearization and the Schur kernels as the reduced solve
    (``make_solve_fn``),
 6. update landmark extents / observation counts.
