@@ -147,6 +147,14 @@ import time
 
 import numpy as np
 
+from portbench.work.k1 import (
+    _ADJOINT, _BETWEEN, _COMPOSE, _INV3, _JR_INV, _MV3, _NORMAL_COLS,
+    _PLANE_NORMALIZE, _ROBUST, _SE3_EXP, _SE3_LOG, _TANGENT4, _chol_ops, _mm,
+    _sym, k1_bytes, k1_ops)
+from portbench.work.k2 import k2_bytes, k2_ops
+from portbench.work.k3a import k3a_bytes, k3a_ops
+from portbench.work.k5 import k5_bytes, k5_ops
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 outside the
@@ -227,151 +235,22 @@ def _bound(nbytes: float, ops: float):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-# ---- operation counts for the bounds ----
-# Arithmetic operations (add, subtract, multiply, divide, square root,
-# transcendental: one each; compares, selects and sign flips: none) of the
-# work these inputs need, counted from the kernels' sources.  Where a
-# helper branches on the data (small-angle series), the cheaper branch is
-# counted; a symmetric product counts its upper triangle once; only valid
-# factors, free poses and landmarks that are observed do work.  So the
-# counts never exceed what the inputs need.
-
-def _chol_ops(n: int) -> float:
-    """Cholesky of an n x n SPD matrix plus the two triangular solves."""
-    return n ** 3 / 3 + n ** 2 / 2 + n / 6 + n + 2 * n * n
-
-
-# lie.cuh helpers, composed as there
-_DOT3, _MV3, _MM3, _HAT3_SQ, _EYE_PLUS = 5, 15, 45, 17, 36
-_SINC, _COSC, _SERIES = 3, 6, 6          # sincc/cot_term/c2/c3: 6 each
-_SO3_EXP = 6 + _HAT3_SQ + _SINC + _COSC + _EYE_PLUS
-_SO3_LOG = 20 + 6 + 3 + 3                # quaternion, |v|, scale, phi
-_V = 6 + _HAT3_SQ + _COSC + _SERIES + _EYE_PLUS
-_V_INV = 6 + _HAT3_SQ + _SERIES + _EYE_PLUS
-_Q = 6 + 3 * _SERIES + 7 * _MM3 + 9 * 13
-_JR_INV = _V_INV + _Q + 2 * _MM3
-_ADJOINT = _MM3
-_SE3_LOG = _SO3_LOG + _V_INV + _MV3
-_SE3_EXP = _SO3_EXP + _V + _MV3
-_COMPOSE = _MM3 + _MV3 + 3
-_BETWEEN = _MV3 + _COMPOSE
-_INV3 = 27 + 5 + 9
-_SPD_INV6 = 2 * _INV3 + 3 * _MM3 + 54 + 18
-_TANGENT4 = 1 + 7 + 48
-_NORMAL_COLS = 1 + 5 + 24
-_PLANE_NORMALIZE = 12
-_ROBUST = {"none": 0, "huber": 6, "cauchy": 9}   # rho + IRLS weight
-
-
-def _mm(n: int, k: int, m: int) -> int:
-    return 2 * n * k * m
-
-
-def _sym(n: int, k: int) -> int:
-    """A^T A with A (k x n): upper triangle only."""
-    return n * (n + 1) // 2 * 2 * k
-
-
-# one plane factor's terms (plane_factor.cuh plane_terms_one, K5's whole
-# work per valid factor): prediction 51, measured plane 19, tangent
-# columns, residual 11, Jp 30, S^3 basis, dnc 54, Jl 102, whitening (A r,
-# A Jp, A Jl)
-_PLANE_TERMS = (51 + 19 + _NORMAL_COLS + 11 + 30 + _TANGENT4 + 54 + 102
-                + _MV3 + _mm(3, 3, 6) + _mm(3, 3, 3))
-# K1's plane factor adds the IRLS weight (|r|^2, sqrt, scale 30)
-_PLANE_FACTOR = _PLANE_TERMS + 5 + 1 + 30
-# one odometry factor (pose_factor); a prior skips the measurement between
-_ODOM_FACTOR = (2 * _BETWEEN + _SE3_LOG + _JR_INV + _mm(6, 6, 6) + _BETWEEN
-                + _ADJOINT + _mm(6, 6, 6) + _mm(6, 6, 1) + 12 + 1 + 78)
-_PRIOR_FACTOR = _ODOM_FACTOR - _BETWEEN
-# the exiting keyframe's marginal (marginal()), once per launch: four
-# betweens, two logs and J_r^-1, A J, the adjoint; A J Ad, A_p J_r,
-# J0^T J1, H01^T H00^-1 (full); J0^T J0, Jq^T Jq, J1^T J1, T H01
-# (symmetric); H00 sums, the 6x6 inverse, Hm, symmetrize + floor, the 6x6
-# Cholesky, and the blend into the prior
-_MARGINAL = (4 * _BETWEEN + 2 * _SE3_LOG + 2 * _JR_INV + 36 + _ADJOINT
-             + 4 * _mm(6, 6, 6) + 4 * _sym(6, 6) + 27 + _SPD_INV6 + 21 + 48
-             + (_chol_ops(6) - 2 * 36) + 192)
-
-
-def k1_ops(window, factors, iters: int, robust) -> float:
-    """Operations of one K1 launch on these inputs (see above)."""
-    W = window.window_size
-    free = (window.pose_valid & ~window.pose_fixed).cpu().numpy()
-    lm_valid = window.lm_valid.cpu().numpy()
-    pf, od, pr = factors.planes, factors.odom, factors.priors
-    pv = pf.valid.cpu().numpy()
-    pp, pl = pf.pose_idx.cpu().numpy(), pf.lm_idx.cpu().numpy()
-    L = lm_valid.shape[0]
-    pv = pv & (pp >= 0) & (pp < W) & (pl >= 0) & (pl < L)
-    n_pf = int(pv.sum())
-    n_od = int(od.valid.cpu().numpy().sum())
-    n_pr = int(pr.valid.cpu().numpy().sum())
-    # distinct free poses observing each landmark: the sparse Hpl blocks
-    n_l = np.zeros(L, np.int64)
-    for l in range(L):
-        n_l[l] = len({int(p) for p in pp[pv & (pl == l)] if free[p]})
-    n_lm = int((n_l > 0).sum())
-    n = 6 * int(free.sum())
-
-    lin = (n_pf * (_PLANE_FACTOR + _ROBUST[robust.plane.kind])
-           + n_od * (_ODOM_FACTOR + _ROBUST[robust.odom.kind])
-           + n_pr * (_PRIOR_FACTOR + _ROBUST[robust.prior.kind]))
-    # normal equations: Hpp (diag + off-diag blocks), Hpl, Hll, gradients
-    normal = (n_od * (2 * _sym(6, 6) + _mm(6, 6, 6) + 2 * _mm(6, 6, 1))
-              + n_pr * (_sym(6, 6) + _mm(6, 6, 1))
-              + n_pf * (_sym(6, 3) + _mm(6, 3, 3) + _sym(3, 3)
-                        + _mm(6, 3, 1) + _mm(3, 3, 1))
-              + n_lm * (3 + _INV3) + n_pf + n_od + n_pr + 1)
-    # Schur: per landmark B_l = Hpl_l Hll^-1, S -= B_l Hpl_l^T, rhs
-    m = 6 * n_l
-    schur = float((_mm(1, 3, 3) * m + m * (m + 1) // 2 * 6
-                   + _mm(1, 3, 1) * m).sum()) + 2 * n
-    back = float((12 * 3 * n_l + 3 + 15)[n_l > 0].sum())
-    step = 2 * (n + 3 * n_lm)
-    retract = (n // 6) * (_SE3_EXP + _COMPOSE) + int(lm_valid.sum()) * (
-        _TANGENT4 + 24 + _PLANE_NORMALIZE)
-    per_it = lin + normal + schur + _chol_ops(n) + back + step + retract
-    return iters * per_it + _MARGINAL
-
-
-def k2_ops(H: int, W: int, n_walls: int) -> float:
-    """Operations of one K2 launch: per pixel the ray, its rotation and
-    the ground hit (21); per valid wall the hit, its extent and height
-    tests (19); per wall once the staged terms (14)."""
-    return H * W * (21 + 19 * n_walls) + 14 * n_walls
-
+# ---- operation counts for the bounds: the benchmark's own yardsticks
+# (portbench/work/), and the lie.cuh helpers' operations they compose ----
 
 def k5_work(window, pf):
-    """(bytes, operations) of one K5 launch: the window and each factor's
-    inputs read once (a sqrt-info broadcast over the factors, which the
-    wrapper passes as one matrix, once), r/Jp/Jl written once; operations
-    per valid factor with both indices in range (``_PLANE_TERMS``)."""
+    """(bytes, operations) of one K5 launch (portbench/work/k5.py)."""
     W, L = window.window_size, window.max_landmarks
-    F = pf.valid.shape[0]
-    p, l = pf.pose_idx.cpu().numpy(), pf.lm_idx.cpu().numpy()
-    ok = pf.valid.cpu().numpy() & (p >= 0) & (p < W) & (l >= 0) & (l < L)
-    a_bytes = 36 if pf.sqrt_info.stride() == (0, 3, 1) else 36 * F
-    nbytes = (4 * (12 * W + 4 * L) + F * (4 + 4 + 16 + 1) + a_bytes
-              + F * 4 * 30)
-    return nbytes, int(ok.sum()) * _PLANE_TERMS
+    return (k5_bytes(W, L, pf.valid.shape[0],
+                     pf.sqrt_info.stride() == (0, 3, 1)),
+            k5_ops(W, L, pf.valid, pf.pose_idx, pf.lm_idx))
 
 
-def schur_product_ops(lin, window):
-    """(operations, free-pose rows) of S = Hpp - B G^T that these inputs
-    need: per landmark, the product of its B and G rows over the free
-    poses observing it (symmetric: upper triangle, depth 3), plus one
-    subtraction per upper-triangle entry of the blocks those products
-    touch."""
-    obs = (lin.Hpl.abs().sum(dim=(-1, -2)) > 0).cpu().numpy()     # (W, L)
-    free = (window.pose_valid & ~window.pose_fixed).cpu().numpy()
-    obs = obs & free[:, None]
-    m = 6 * obs.sum(0)
-    prod = float((m * (m + 1) // 2 * 2 * 3).sum())
-    touched = (obs.astype(np.int64) @ obs.T.astype(np.int64)) > 0
-    sub = (21 * int(np.diag(touched).sum())
-           + 36 * int(np.triu(touched, 1).sum()))
-    return prod + sub, 6 * int(free.sum())
+def k3b_ops(G, pm) -> float:
+    """Operations of K3b's product S = Hpp - B G^T alone: K3a's work on
+    these operands less the damping of the free rows and their solve."""
+    n_free = int((pm > 0).sum())
+    return k3a_ops(G, pm) - n_free - _chol_ops(n_free)
 
 
 # K6 and K7 (ops/csrc/lm_step.cu): the pose factors' pieces as
@@ -854,7 +733,6 @@ def check_k3a(torch, ks, graph, solver_schur, window, factors, robust):
     assert bool((stamps.diff(dim=1) >= 0).all()), "K3a stamps"
     kernel_ms = float((stamps[:, -1] - stamps[:, 0]).double().mean()) / 1e6
     n, C = B.shape
-    prod, n_free = schur_product_ops(lin, window)
     timing = dict(
         ms=_time_ms(lambda: ks.schur_reduce_small(Hpp, B, G, -rp, pm, lam)),
         plain_ms=_time_ms(lambda: ks.schur_reduce_small_plain(
@@ -864,8 +742,7 @@ def check_k3a(torch, ks, graph, solver_schur, window, factors, robust):
                                                             lam)),
         reduce_ms=_time_ms(lambda: ks.schur_reduce(lin, window, lam)),
         kernel_ms_stamped=kernel_ms,
-        work=(4 * (n * n + 2 * n * C + 2 * n + 1) + 4 * (n * n + n),
-              prod + n_free + _chol_ops(n_free)),
+        work=(k3a_bytes(n, C), k3a_ops(G, pm)),
     )
     return worst, timing
 
@@ -925,7 +802,9 @@ def check_k6_k7(torch, ks, pj, lm_step, gn, window, factors, robust):
     huber and cauchy kernels.  K7 also on a first cost no step can lower
     (rejected: the window back bit for bit, lambda x 10), and two
     launches of each bit-identical.  Times the route's calls (the factors
-    packed once) and the plain versions.  Returns ((K6 worst, timing),
+    packed once) and the plain versions.  Each case's line carries the
+    sha256 of the kernels' outputs, for a bit-for-bit comparison with
+    another build.  Returns ((K6 worst, timing),
     (K7 worst, timing))."""
     from pop_up_slam_tpu_torch.factors.robust import (RobustConfig,
                                                       RobustKernel)
@@ -957,7 +836,7 @@ def check_k6_k7(torch, ks, pj, lm_step, gn, window, factors, robust):
             ops_k.pm, ops_p.pm)
         print(json.dumps({"check": "K6", "case": name, "scaled_err": errs,
                           "tol": LM_TOL, "two_launches_bit_identical": same,
-                          "pass": ok}))
+                          "sha256": sha256_of(*ops_k), "pass": ok}))
         assert ok, f"K6 {name}"
         e6 = max(e6, max(errs.values()))
 
@@ -1005,6 +884,7 @@ def check_k6_k7(torch, ks, pj, lm_step, gn, window, factors, robust):
                                                       1e-9, 1e6))
             and all(torch.equal(a, b) for a, b in zip(w_r[:3], w[:3])))
         line["scaled_err"] = max(errs)
+        line["sha256"] = sha256_of(*w_k[:3], *st_k)
         ok = (ok and max(errs) <= LM_TOL and line["reject_holds"]
               and line["two_launches_bit_identical"])
         line["pass"] = ok
@@ -1094,7 +974,7 @@ def check_k3b(torch, ks, cholesky, graph, dev):
                 library_ms=_time_ms(lambda: torch.addmm(Hpp, B, G.T,
                                                         alpha=-1)),
                 work=(4 * (n * n + 2 * n * C) + 4 * n * n,
-                      schur_product_ops(lin, window)[0]),
+                      k3b_ops(G, pm)),
             )
     return worst, timing
 
@@ -1219,10 +1099,7 @@ def check_k2(torch, pp, depth_render, K, K_120x160, masks, ref):
         if name != "0":
             continue
         H, W = mask.shape
-        S = res.planes_w.shape[0]
-        # mask, depth, camera/pose/ground, planes, endpoints, flags
-        nbytes = H * W * (1 + 4) + 4 * (4 + 9 + 3 + 4) + S * (
-            4 * 4 + 4 * 6 + 3)
+        nbytes = k2_bytes(H, W, res.planes_w.shape[0])
         ops = k2_ops(H, W, int(res.valid.sum()))
         timing = dict(
             ms=_time_ms(lambda: depth_render.depth_render(
@@ -1236,7 +1113,9 @@ def check_k2(torch, pp, depth_render, K, K_120x160, masks, ref):
 
 
 def check_k1(torch, _build, fused_gn, slam_mod, state, scfg):
-    """K1 vs its plain version on a mid-sequence state (window full)."""
+    """K1 vs its plain version on a mid-sequence state (window full), and
+    the sha256 of its outputs, for a bit-for-bit comparison with another
+    build."""
     W = scfg.window_size
     factors = slam_mod._build_factors(state, scfg)
     w0 = state.window
@@ -1267,7 +1146,9 @@ def check_k1(torch, _build, fused_gn, slam_mod, state, scfg):
     ok = err <= K1_TOL and cost_err <= K1_TOL and m_err <= 1e-3 and same
     print(json.dumps({"check": "K1", "max_abs_err": err, "tol": K1_TOL,
                       "cost_rel_err": cost_err, "marg_rel_err": m_err,
-                      "two_launches_bit_identical": same, "pass": ok}))
+                      "two_launches_bit_identical": same,
+                      "sha256": sha256_of(wk.R, wk.t, wk.planes, ck, mk),
+                      "pass": ok}))
     assert ok, "K1 disagrees with its plain version or is not deterministic"
     # the kernel's own time: its first and last %globaltimer stamps
     n_st = 50
@@ -1285,10 +1166,7 @@ def check_k1(torch, _build, fused_gn, slam_mod, state, scfg):
     # the Python shape gate's layout size is the kernel's own
     smem_c = _build.library().popup_fused_gn_smem_bytes(Wn, L, F, O, P)
     assert smem_c == fused_gn.smem_bytes(Wn, L, F, O, P), smem_c
-    # inputs read once + outputs written once
-    nbytes = 4 * (12 * Wn + 4 * L + 48 * P + 13 * F + 48 * O + 128
-                  + 2 * F + 2 * O + P) + (2 * Wn + L + F + O + P) \
-        + 4 * (12 * Wn + 4 * L + scfg.gn_iters + 36)
+    nbytes = k1_bytes(w0, factors, scfg.gn_iters)
     ops = k1_ops(w0, factors, scfg.gn_iters, scfg.robust)
     timing = dict(
         ms=_time_ms(lambda: fused_gn.fused_gn_solve(w0, factors, **kw)),

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("chol_solve.cu", "depth_render.cu", "fused_gn.cu", "lm_step.cu",
            "plane_terms.cu", "schur_reduce.cu")
-HEADERS = ("chol.cuh", "lie.cuh", "plane_factor.cuh")
+HEADERS = ("chol.cuh", "factor_graph.cuh", "lie.cuh", "plane_factor.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,8 +37,7 @@ _SIGNATURES = {
     "popup_chol_solve": [_P, _P, _P, _P, _I, _P],
     "popup_depth_render": [_P] * 11 + [_I, _P, _P, _I, _I, _F, _F, _F, _P],
     "popup_fused_gn_smem_bytes": [_I, _I, _I, _I, _I],
-    "popup_fused_gn": [_P] * 14 + [_F] + [_I] * 6
-    + [_I, _F, _I, _F, _I, _F] + [_P] * 8,
+    "popup_fused_gn": [_P] * 4,
     "popup_plane_terms": [_P] * 9 + [_I] * 4 + [_P, _P],
     "popup_schur_reduce_small": [_P] * 8 + [_I, _I, _P, _P],
     "popup_schur_gemm": [_P] * 4 + [_I, _I, _P],

@@ -32,51 +32,24 @@
 // different rows hit different banks; the marginal runs on a warp and the
 // step norm and cost are warp reductions; the reduced solve is the
 // panel-blocked chol.cuh routine.  Optional %globaltimer stamps at the
-// phase boundaries (Args::stamps) feed the profile script.
+// phase boundaries (Args::stamps) feed the profile script.  The window and
+// factors, their wiring, the robust kernels and the pose factor are
+// factor_graph.cuh's (shared with K6 and K7, lm_step.cu); the plane
+// factor is plane_factor.cuh's.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "chol.cuh"
-#include "lie.cuh"
+#include "factor_graph.cuh"
 #include "plane_factor.cuh"
 
 namespace {
 
+using namespace popup;
+
 constexpr int kThreads = 512;  // measured against 256 (PERF.md)
 
-__host__ __device__ inline int round32(int x) { return (x + 31) & ~31; }
-
 constexpr int kMargScratch = 14 * 36;  // the marginal's 6 x 6 matrices
-
-__device__ inline float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-struct Robust {
-  int kind;  // 0 none, 1 huber, 2 cauchy
-  float scale;
-};
-
-__device__ inline float irls_w(Robust k, float sq) {
-  if (k.kind == 0) return 1.0f;
-  if (k.kind == 1) return fminf(1.0f, k.scale / sqrtf(fmaxf(sq, 1e-20f)));
-  return 1.0f / (1.0f + sq / (k.scale * k.scale));
-}
-
-__device__ inline float rho(Robust k, float sq) {
-  if (k.kind == 0) return sq;
-  if (k.kind == 1) {
-    const float nrm = sqrtf(fmaxf(sq, 1e-20f));
-    return nrm <= k.scale ? sq : 2.0f * k.scale * nrm - k.scale * k.scale;
-  }
-  return k.scale * k.scale * log1pf(sq / (k.scale * k.scale));
-}
-
-struct Dims {
-  int W, L, F, O, P, iters;
-};
 
 // Offsets (in 4-byte words) of the shared-memory arrays.
 struct Layout {
@@ -85,6 +58,10 @@ struct Layout {
   int Hpp, Hpl, B, Winv, bp, bl, rhs, dxp, dxl, pairs, lstart, llist;
   int pstart, plist, margs, chol, scal, total;
   int ldh;  // row stride of Hpl and B: 3L rounded up to odd (distinct banks)
+};
+
+struct Dims {
+  int W, L, F, O, P;
 };
 
 __host__ __device__ inline Layout make_layout(Dims d) {
@@ -135,13 +112,10 @@ __host__ __device__ inline Layout make_layout(Dims d) {
 }
 
 struct Args {
-  const float *R, *t, *planes, *prR, *prt, *prA, *pfpi, *pfA, *odR, *odt, *odA;
-  const uint8_t* bools;  // [pose_valid W | pose_fixed W | lm_valid L | pf F | od O | pr P]
-  const int* idx;        // [pf_pose F | pf_lm F | od_i O | od_j O | pr_idx P]
-  const float* marg;     // (8, 16) or null
+  Problem q;
+  const float* marg;  // (8, 16) or null
   float lam;
-  Dims d;
-  Robust k_odom, k_plane, k_prior;
+  int iters;
   int fuse_marg;
   float adiag[6];
   float eps_m, floor_m;
@@ -166,7 +140,9 @@ __device__ inline void stamp(const Args& a, int i) {
 // per-factor linearization (one thread per factor)
 // ---------------------------------------------------------------------
 
-__device__ void plane_factor(const Args& a, int f, int p, int l,
+// plane factor f (pose p, landmark l; p < 0: unwired, zero) with its IRLS
+// weight folded in
+__device__ void plane_factor(const Problem& q, int f, int p, int l,
                              const float* Rs, const float* ts,
                              const float* pls, float* r_out, float* Jp_out,
                              float* Jl_out, float* rho_out) {
@@ -174,69 +150,48 @@ __device__ void plane_factor(const Args& a, int f, int p, int l,
     for (int e = 0; e < 3; ++e) r_out[e] = 0.0f;
     for (int e = 0; e < 18; ++e) Jp_out[e] = 0.0f;
     for (int e = 0; e < 9; ++e) Jl_out[e] = 0.0f;
-    *rho_out = rho(a.k_plane, 0.0f);
+    *rho_out = rho(q.k_plane, 0.0f);
     return;
   }
-  popup::plane_terms_one(Rs + 9 * p, ts + 3 * p, pls + 4 * l, a.pfpi + 4 * f,
-                         a.pfA + 9 * f, r_out, Jp_out, Jl_out);
+  plane_terms_one(Rs + 9 * p, ts + 3 * p, pls + 4 * l, q.pf_pi + 4 * f,
+                  q.pf_A + q.pf_As * f, r_out, Jp_out, Jl_out);
   const float sq = lie::dot3(r_out, r_out);
-  *rho_out = rho(a.k_plane, sq);
-  const float sw = sqrtf(irls_w(a.k_plane, sq));
+  *rho_out = rho(q.k_plane, sq);
+  const float sw = sqrtf(irls_w(q.k_plane, sq));
   for (int e = 0; e < 3; ++e) r_out[e] *= sw;
   for (int e = 0; e < 18; ++e) Jp_out[e] *= sw;
   for (int e = 0; e < 9; ++e) Jl_out[e] *= sw;
 }
 
-// odometry (o < O) or prior (o >= O) factor
-__device__ void pose_factor(const Args& a, int o, int i, int j,
-                            const float* Rs, const float* ts,
-                            const float* prR, const float* prt,
-                            const float* prA, float* r_out, float* Ji_out,
-                            float* Jj_out, float* rho_out) {
-  const bool prior = o >= a.d.O;
-  const Robust k = prior ? a.k_prior : a.k_odom;
+// odometry (o < O) or prior (o >= O) factor o (j < 0: unwired, zero)
+// with its IRLS weight folded in, the priors read from shared memory
+// (prR, prt, prA), where the marginal may have replaced them; a prior
+// leaves Ji_out unwritten.  The linearization runs in registers and each
+// output is stored once: one thread carries a pose factor, on the phase's
+// critical path.
+__device__ void weighted_pose_factor(const Problem& q, int o, int i, int j,
+                                     const float* Rs, const float* ts,
+                                     const float* prR, const float* prt,
+                                     const float* prA, float* r_out,
+                                     float* Ji_out, float* Jj_out,
+                                     float* rho_out) {
+  const Robust k = o < q.O ? q.k_odom : q.k_prior;
   if (j < 0) {
     for (int e = 0; e < 6; ++e) r_out[e] = 0.0f;
     for (int e = 0; e < 36; ++e) { Ji_out[e] = 0.0f; Jj_out[e] = 0.0f; }
     *rho_out = rho(k, 0.0f);
     return;
   }
-  const int q = o - a.d.O;
-  const float* Ri = prior ? prR + 9 * q : Rs + 9 * i;
-  const float* ti = prior ? prt + 3 * q : ts + 3 * i;
-  const float* Rj = Rs + 9 * j;
-  const float* tj = ts + 3 * j;
-  const float* A = prior ? prA + 36 * q : a.odA + 36 * o;
-
-  float R_rel[9], t_rel[3], R_err[9], t_err[3];
-  lie::se3_between(Ri, ti, Rj, tj, R_rel, t_rel);
-  if (prior) {
-    for (int e = 0; e < 9; ++e) R_err[e] = R_rel[e];
-    for (int e = 0; e < 3; ++e) t_err[e] = t_rel[e];
-  } else {
-    lie::se3_between(a.odR + 9 * o, a.odt + 3 * o, R_rel, t_rel, R_err, t_err);
-  }
-  float r0[6];
-  lie::se3_log(R_err, t_err, r0, r0 + 3);
-  float Jr[36], AJ[36];
-  lie::se3_right_jacobian_inv(r0, r0 + 3, Jr);
-  lie::mmn(A, Jr, AJ, 6, 6, 6);
-  float R_ji[9], t_ji[3], Ad[36], Ji[36];
-  lie::se3_between(Rj, tj, Ri, ti, R_ji, t_ji);
-  lie::se3_adjoint(R_ji, t_ji, Ad);
-  lie::mmn(AJ, Ad, Ji, 6, 6, 6);
-  float r[6];
-  lie::mmn(A, r0, r, 6, 6, 1);
-
+  float r[6], Ji[36], Jj[36];
+  pose_factor(q, o, i, j, Rs, ts, prR, prt, prA, 36, true, r, Ji, Jj);
   float sq = 0.0f;
   for (int e = 0; e < 6; ++e) sq += r[e] * r[e];
   *rho_out = rho(k, sq);
   const float sw = sqrtf(irls_w(k, sq));
   for (int e = 0; e < 6; ++e) r_out[e] = r[e] * sw;
-  for (int e = 0; e < 36; ++e) {
-    Ji_out[e] = -Ji[e] * sw;
-    Jj_out[e] = AJ[e] * sw;
-  }
+  for (int e = 0; e < 36; ++e) Jj_out[e] = Jj[e] * sw;
+  if (o < q.O)
+    for (int e = 0; e < 36; ++e) Ji_out[e] = Ji[e] * sw;
 }
 
 // C = op(A) B for 6 x 6 matrices (op(A) = A or A^T), spread over a warp:
@@ -346,10 +301,9 @@ __device__ void marginal_warp(const Args& a, float* prR, float* prt,
 
 __global__ void __launch_bounds__(kThreads) fused_gn_kernel(Args a) {
   extern __shared__ float sm[];
-  const Dims d = a.d;
-  const int W = d.W, L = d.L, F = d.F, O = d.O, P = d.P, OP = O + P;
-  const int n6 = 6 * W, n3 = 3 * L;
-  const Layout ly = make_layout(d);
+  const int W = a.q.W, L = a.q.L, F = a.q.F, O = a.q.O, P = a.q.P;
+  const int OP = O + P, n6 = 6 * W, n3 = 3 * L;
+  const Layout ly = make_layout(Dims{W, L, F, O, P});
   float *Rs = sm + ly.Rs, *ts = sm + ly.ts, *pls = sm + ly.pls;
   float *prR = sm + ly.prR, *prt = sm + ly.prt, *prA = sm + ly.prA;
   float *freem = sm + ly.freem, *lmv = sm + ly.lmv;
@@ -370,48 +324,17 @@ __global__ void __launch_bounds__(kThreads) fused_gn_kernel(Args a) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31;
 
-  const uint8_t* pval = a.bools;
-  const uint8_t* pfix = pval + W;
-  const uint8_t* lmvb = pfix + W;
-  const uint8_t* pfv = lmvb + L;
-  const uint8_t* odv = pfv + F;
-  const uint8_t* prv = odv + O;
-  const int* pfpose = a.idx;
-  const int* pflm = pfpose + F;
-  const int* odi = pflm + F;
-  const int* odj = odi + O;
-  const int* pridx = odj + O;
   stamp(a, 0);
 
-  // ---- load the state and the static factor wiring ----
-  for (int e = tid; e < 9 * W; e += nt) Rs[e] = a.R[e];
-  for (int e = tid; e < 3 * W; e += nt) ts[e] = a.t[e];
-  for (int e = tid; e < 4 * L; e += nt) pls[e] = a.planes[e];
-  for (int e = tid; e < 9 * P; e += nt) prR[e] = a.prR[e];
-  for (int e = tid; e < 3 * P; e += nt) prt[e] = a.prt[e];
-  for (int e = tid; e < 36 * P; e += nt) prA[e] = a.prA[e];
-  for (int w = tid; w < W; w += nt) freem[w] = (pval[w] && !pfix[w]) ? 1.0f : 0.0f;
-  for (int l = tid; l < L; l += nt) lmv[l] = lmvb[l] ? 1.0f : 0.0f;
-  // an invalid or out-of-range factor is wired to nothing (-1)
-  for (int f = tid; f < F; f += nt) {
-    const int p = pfpose[f], l = pflm[f];
-    const bool ok = pfv[f] && p >= 0 && p < W && l >= 0 && l < L;
-    pfp[f] = ok ? p : -1;
-    pfl[f] = ok ? l : -1;
-  }
-  for (int o = tid; o < OP; o += nt) {
-    if (o < O) {
-      const int i = odi[o], j = odj[o];
-      const bool ok = odv[o] && i >= 0 && i < W && j >= 0 && j < W;
-      oi[o] = ok ? i : -1;
-      oj[o] = ok ? j : -1;
-    } else {
-      const int j = pridx[o - O];
-      const bool ok = prv[o - O] && j >= 0 && j < W;
-      oi[o] = -1;  // a prior's "i" side is its constant mean
-      oj[o] = ok ? j : -1;
-    }
-  }
+  // ---- load the state, the prior and the static factor wiring ----
+  for (int e = tid; e < 9 * W; e += nt) Rs[e] = a.q.R[e];
+  for (int e = tid; e < 3 * W; e += nt) ts[e] = a.q.t[e];
+  for (int e = tid; e < 4 * L; e += nt) pls[e] = a.q.planes[e];
+  for (int e = tid; e < 9 * P; e += nt) prR[e] = a.q.pr_R[e];
+  for (int e = tid; e < 3 * P; e += nt) prt[e] = a.q.pr_t[e];
+  for (int e = tid; e < 36 * P; e += nt)
+    prA[e] = a.q.pr_A[a.q.pr_As * (e / 36) + e % 36];
+  load_wiring(a.q, pfp, pfl, oi, oj, freem, lmv);
   __syncthreads();
   stamp(a, 1);
   // warp 0: the marginal; the other warps: each landmark's mask of the
@@ -455,16 +378,17 @@ __global__ void __launch_bounds__(kThreads) fused_gn_kernel(Args a) {
 
   const int pbase = round32(F);  // pose factors start on a warp
   const int nHpl = W * L;
-  for (int it = 0; it < d.iters; ++it) {
+  for (int it = 0; it < a.iters; ++it) {
     // ---- linearize every factor ----
     for (int e = tid; e < pbase + OP; e += nt) {
       if (e < F) {
-        plane_factor(a, e, pfp[e], pfl[e], Rs, ts, pls, pr + 3 * e,
+        plane_factor(a.q, e, pfp[e], pfl[e], Rs, ts, pls, pr + 3 * e,
                      pJp + 18 * e, pJl + 9 * e, prho + e);
       } else if (e >= pbase) {
         const int o = e - pbase;
-        pose_factor(a, o, oi[o], oj[o], Rs, ts, prR, prt, prA, orr + 6 * o,
-                    oJi + 36 * o, oJj + 36 * o, orho + o);
+        weighted_pose_factor(a.q, o, oi[o], oj[o], Rs, ts, prR, prt, prA,
+                             orr + 6 * o, oJi + 36 * o, oJj + 36 * o,
+                             orho + o);
       }
     }
     __syncthreads();
@@ -736,40 +660,37 @@ __global__ void __launch_bounds__(kThreads) fused_gn_kernel(Args a) {
 }  // namespace
 
 extern "C" int popup_fused_gn_smem_bytes(int W, int L, int F, int O, int P) {
-  return (int)sizeof(float) * make_layout(Dims{W, L, F, O, P, 0}).total;
+  return (int)sizeof(float) * make_layout(Dims{W, L, F, O, P}).total;
 }
 
-extern "C" int popup_fused_gn(
-    const float* R, const float* t, const float* planes, const float* prR,
-    const float* prt, const float* prA, const float* pfpi, const float* pfA,
-    const float* odR, const float* odt, const float* odA, const uint8_t* bools,
-    const int* idx, const float* marg, float lam, int W, int L, int F, int O,
-    int P, int iters, int k_odom, float s_odom, int k_plane, float s_plane,
-    int k_prior, float s_prior, const float* marg_static, float* R_out,
-    float* t_out, float* planes_out, float* costs_out, float* msqrt_out,
-    unsigned long long* stamps, void* stream) {
+// p: the shared slots (make_problem), then the MARG block (null: no
+// marginal), R_out, t_out, planes_out, costs_out, msqrt_out and the phase
+// stamps (null: none); n: the shared ints, then iters; x: the shared
+// floats, then the damping and the marginal's static constants (the
+// odometry sqrt-info diagonal (6), the H00 regularizer, the floor).
+extern "C" int popup_fused_gn(void* const* p, const int* n, const float* x,
+                              void* stream) {
   Args a;
-  a.R = R; a.t = t; a.planes = planes; a.prR = prR; a.prt = prt; a.prA = prA;
-  a.pfpi = pfpi; a.pfA = pfA; a.odR = odR; a.odt = odt; a.odA = odA;
-  a.bools = bools; a.idx = idx; a.marg = marg; a.lam = lam;
-  a.d = Dims{W, L, F, O, P, iters};
-  a.k_odom = Robust{k_odom, s_odom};
-  a.k_plane = Robust{k_plane, s_plane};
-  a.k_prior = Robust{k_prior, s_prior};
-  a.fuse_marg = marg != nullptr;
-  for (int k = 0; k < 6; ++k) a.adiag[k] = marg_static ? marg_static[k] : 0.0f;
-  a.eps_m = marg_static ? marg_static[6] : 0.0f;
-  a.floor_m = marg_static ? marg_static[7] : 0.0f;
-  a.R_out = R_out; a.t_out = t_out; a.planes_out = planes_out;
-  a.costs_out = costs_out; a.msqrt_out = msqrt_out;
-  a.stamps = stamps;
-
+  a.q = make_problem(p, n, x);
+  void* const* o = p + kOwn;
+  a.marg = (const float*)o[0];
+  a.R_out = (float*)o[1];
+  a.t_out = (float*)o[2];
+  a.planes_out = (float*)o[3];
+  a.costs_out = (float*)o[4];
+  a.msqrt_out = (float*)o[5];
+  a.stamps = (unsigned long long*)o[6];
+  a.iters = n[kOwnInt];
+  a.fuse_marg = a.marg != nullptr;
+  const float* c = x + kOwnFloat;
+  a.lam = c[0];
+  for (int k = 0; k < 6; ++k) a.adiag[k] = c[1 + k];
+  a.eps_m = c[7];
+  a.floor_m = c[8];
   // the wrapper's shape gate (fused_gn_supported) keeps smem within the
-  // block limit; past it the attribute call fails and the wrapper raises
-  const int smem = popup_fused_gn_smem_bytes(W, L, F, O, P);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_gn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  fused_gn_kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  // block limit
+  const Problem& q = a.q;
+  return launch_block(fused_gn_kernel, kThreads,
+                      popup_fused_gn_smem_bytes(q.W, q.L, q.F, q.O, q.P),
+                      stream, a);
 }

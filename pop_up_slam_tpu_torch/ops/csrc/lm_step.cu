@@ -35,165 +35,20 @@
 // window (SolveStats' first cost, with the first lambda).
 //
 // Item kinds run in warp-uniform ranges (each starts on a warp).  The
-// Lie-group routines are lie.cuh's; the IRLS weight and the pose-factor
-// linearization follow fused_gn.cu (K1), whose source the GN cells run
-// and which this file leaves alone.
+// window and factors, their wiring, the robust kernels and the pose
+// factor are factor_graph.cuh's (shared with K1, fused_gn.cu); the plane
+// residual is plane_factor.cuh's.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "lie.cuh"
+#include "factor_graph.cuh"
+#include "plane_factor.cuh"
 
 namespace {
 
+using namespace popup;
+
 constexpr int kThreads = 256;
-
-__host__ __device__ inline int round32(int x) { return (x + 31) & ~31; }
-
-__device__ inline float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// A robust kernel: kind 0 none, 1 huber, 2 cauchy; k its scale, k2 and
-// twok the constants k * k and 2 k as factors/robust.py rounds them
-struct Robust {
-  int kind;
-  float k, k2, twok;
-};
-
-__device__ inline float irls_w(const Robust& r, float sq) {
-  if (r.kind == 0) return 1.0f;
-  if (r.kind == 1) return fminf(r.k / sqrtf(fmaxf(sq, 1e-20f)), 1.0f);
-  return 1.0f / (1.0f + sq / r.k2);
-}
-
-__device__ inline float rho(const Robust& r, float sq) {
-  if (r.kind == 0) return sq;
-  if (r.kind == 1) {
-    const float nrm = sqrtf(fmaxf(sq, 1e-20f));
-    return nrm <= r.k ? sq : r.twok * nrm - r.k2;
-  }
-  return r.k2 * log1pf(sq / r.k2);
-}
-
-// The window and its factors.  Sqrt-info matrices are read at row stride
-// *_As (0: one matrix shared by every factor, as the frame step builds
-// them).
-struct Problem {
-  const float *R, *t, *planes;
-  const uint8_t *pose_valid, *pose_fixed, *lm_valid;
-  const int *pf_pose, *pf_lm;
-  const float *pf_pi, *pf_A;
-  const uint8_t* pf_valid;
-  const int *od_i, *od_j;
-  const float *od_R, *od_t, *od_A;
-  const uint8_t* od_valid;
-  const int* pr_idx;
-  const float *pr_R, *pr_t, *pr_A;
-  const uint8_t* pr_valid;
-  int W, L, F, O, P;
-  int pf_As, od_As, pr_As;
-  Robust k_odom, k_plane, k_prior;
-};
-
-// The wiring, fixed for the call: an invalid or out-of-range factor is
-// wired to nothing (-1); a prior's "i" side is its constant mean.
-__device__ void load_wiring(const Problem& q, int* pfp, int* pfl, int* oi,
-                            int* oj, float* freem, float* lmv) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int W = q.W, L = q.L, O = q.O;
-  for (int f = tid; f < q.F; f += nt) {
-    const int p = q.pf_pose[f], l = q.pf_lm[f];
-    const bool ok = q.pf_valid[f] && p >= 0 && p < W && l >= 0 && l < L;
-    pfp[f] = ok ? p : -1;
-    pfl[f] = ok ? l : -1;
-  }
-  for (int o = tid; o < O + q.P; o += nt) {
-    if (o < O) {
-      const int i = q.od_i[o], j = q.od_j[o];
-      const bool ok = q.od_valid[o] && i >= 0 && i < W && j >= 0 && j < W;
-      oi[o] = ok ? i : -1;
-      oj[o] = ok ? j : -1;
-    } else {
-      const int j = q.pr_idx[o - O];
-      const bool ok = q.pr_valid[o - O] && j >= 0 && j < W;
-      oi[o] = -1;
-      oj[o] = ok ? j : -1;
-    }
-  }
-  for (int w = tid; w < W; w += nt)
-    freem[w] = (q.pose_valid[w] && !q.pose_fixed[w]) ? 1.0f : 0.0f;
-  for (int l = tid; l < L; l += nt) lmv[l] = q.lm_valid[l] ? 1.0f : 0.0f;
-}
-
-// Odometry (o < O) or prior (o >= O) factor o between poses i and j:
-// the whitened residual r (6) and, with jac, the Jacobians Jj = A Jr^-1(r0)
-// and (odometry) Ji = -Jj Ad(T_j^-1 T_i), as graph.py's
-// _odom_terms_analytic / _prior_terms_analytic.
-__device__ void pose_factor(const Problem& q, int o, int i, int j,
-                            const float* Rs, const float* ts, bool jac,
-                            float* r, float* Ji, float* Jj) {
-  const bool prior = o >= q.O;
-  const int p = o - q.O;
-  const float* Ri = prior ? q.pr_R + 9 * p : Rs + 9 * i;
-  const float* ti = prior ? q.pr_t + 3 * p : ts + 3 * i;
-  const float* Rj = Rs + 9 * j;
-  const float* tj = ts + 3 * j;
-  const float* A = prior ? q.pr_A + q.pr_As * p : q.od_A + q.od_As * o;
-  float R_rel[9], t_rel[3], R_err[9], t_err[3];
-  lie::se3_between(Ri, ti, Rj, tj, R_rel, t_rel);
-  if (prior) {
-    for (int e = 0; e < 9; ++e) R_err[e] = R_rel[e];
-    for (int e = 0; e < 3; ++e) t_err[e] = t_rel[e];
-  } else {
-    lie::se3_between(q.od_R + 9 * o, q.od_t + 3 * o, R_rel, t_rel, R_err,
-                     t_err);
-  }
-  float r0[6];
-  lie::se3_log(R_err, t_err, r0, r0 + 3);
-  lie::mmn(A, r0, r, 6, 6, 1);
-  if (!jac) return;
-  float Jr[36];
-  lie::se3_right_jacobian_inv(r0, r0 + 3, Jr);
-  lie::mmn(A, Jr, Jj, 6, 6, 6);
-  if (prior) return;
-  float R_ji[9], t_ji[3], Ad[36], T[36];
-  lie::se3_between(Rj, tj, Ri, ti, R_ji, t_ji);
-  lie::se3_adjoint(R_ji, t_ji, Ad);
-  lie::mmn(Jj, Ad, T, 6, 6, 6);
-  for (int e = 0; e < 36; ++e) Ji[e] = -T[e];
-}
-
-// graph.py's plane_residual: A hessian_local(transform(pi_w, T_wc^-1),
-// pi_meas), the prediction normalized on S^3 first.
-__device__ void plane_residual(const float* R_wc, const float* t_wc,
-                               const float* pi_w, const float* pim,
-                               const float* A, float* r_out) {
-  float R_cw[9], t_cw[3], pc[4];
-  lie::transpose3(R_wc, R_cw);
-  lie::mv3(R_cw, t_wc, t_cw);
-  for (int k = 0; k < 3; ++k) t_cw[k] = -t_cw[k];
-  lie::mv3(R_cw, pi_w, pc);
-  pc[3] = pi_w[3] - lie::dot3(t_cw, pc);
-  lie::plane_normalize(pc);
-  const float cp = fmaxf(sqrtf(lie::dot3(pc, pc)), 1e-9f);
-  const float cm = fmaxf(sqrtf(lie::dot3(pim, pim)), 1e-9f);
-  float np[3], nm[3];
-  for (int k = 0; k < 3; ++k) {
-    np[k] = pc[k] / cp;
-    nm[k] = pim[k] / cm;
-  }
-  const float dp = pc[3] / cp;
-  float dm = pim[3] / cm;
-  const float s = lie::dot3(np, nm) >= 0.0f ? 1.0f : -1.0f;
-  for (int k = 0; k < 3; ++k) nm[k] *= s;
-  dm *= s;
-  float B0[3], B1[3];
-  lie::normal_tangent_cols(nm, B0, B1);
-  const float r[3] = {lie::dot3(B0, np), lie::dot3(B1, np), dp - dm};
-  lie::mv3(A, r, r_out);
-}
 
 // ---------------------------------------------------------------------
 // K6: the normal equations and K3a's operands
@@ -294,7 +149,8 @@ __global__ void __launch_bounds__(kThreads)
       float* r = orr + 6 * o;
       float* Ji = oJi + 36 * o;
       float* Jj = oJj + 36 * o;
-      pose_factor(q, o, oi[o], oj[o], Rs, ts, true, r, Ji, Jj);
+      pose_factor(q, o, oi[o], oj[o], Rs, ts, q.pr_R, q.pr_t, q.pr_A,
+                  q.pr_As, true, r, Ji, Jj);
       float sq = 0.0f;
       for (int c = 0; c < 6; ++c) sq += r[c] * r[c];
       const float sw = sqrtf(irls_w(o < O ? q.k_odom : q.k_prior, sq));
@@ -639,7 +495,8 @@ __global__ void __launch_bounds__(kThreads)
       float sq = 0.0f;
       if (oj[o] >= 0) {
         float r[6];
-        pose_factor(q, o, oi[o], oj[o], Re, te, false, r, nullptr, nullptr);
+        pose_factor(q, o, oi[o], oj[o], Re, te, q.pr_R, q.pr_t, q.pr_A,
+                    q.pr_As, false, r, nullptr, nullptr);
         for (int c = 0; c < 6; ++c) sq += r[c] * r[c];
       }
       ro[o] = rho(o < O ? q.k_odom : q.k_prior, sq);
@@ -682,57 +539,6 @@ __global__ void __launch_bounds__(kThreads)
   for (int e = tid; e < 4 * L; e += nt) io.planes_out[e] = psel[e];
 }
 
-// Pointer slots of the C interface, shared by both kernels, then each
-// kernel's own (ops/lm_step.py builds the same table).
-enum Slot {
-  kR, kT, kPlanes, kPoseValid, kPoseFixed, kLmValid,
-  kPfPose, kPfLm, kPfPi, kPfA, kPfValid,
-  kOdI, kOdJ, kOdR, kOdT, kOdA, kOdValid,
-  kPrIdx, kPrR, kPrT, kPrA, kPrValid,
-  kOwn  // first kernel-specific slot
-};
-
-Problem make_problem(void* const* p, const int* n, const float* x) {
-  Problem q;
-  q.R = (const float*)p[kR];
-  q.t = (const float*)p[kT];
-  q.planes = (const float*)p[kPlanes];
-  q.pose_valid = (const uint8_t*)p[kPoseValid];
-  q.pose_fixed = (const uint8_t*)p[kPoseFixed];
-  q.lm_valid = (const uint8_t*)p[kLmValid];
-  q.pf_pose = (const int*)p[kPfPose];
-  q.pf_lm = (const int*)p[kPfLm];
-  q.pf_pi = (const float*)p[kPfPi];
-  q.pf_A = (const float*)p[kPfA];
-  q.pf_valid = (const uint8_t*)p[kPfValid];
-  q.od_i = (const int*)p[kOdI];
-  q.od_j = (const int*)p[kOdJ];
-  q.od_R = (const float*)p[kOdR];
-  q.od_t = (const float*)p[kOdT];
-  q.od_A = (const float*)p[kOdA];
-  q.od_valid = (const uint8_t*)p[kOdValid];
-  q.pr_idx = (const int*)p[kPrIdx];
-  q.pr_R = (const float*)p[kPrR];
-  q.pr_t = (const float*)p[kPrT];
-  q.pr_A = (const float*)p[kPrA];
-  q.pr_valid = (const uint8_t*)p[kPrValid];
-  q.W = n[0]; q.L = n[1]; q.F = n[2]; q.O = n[3]; q.P = n[4];
-  q.pf_As = n[5]; q.od_As = n[6]; q.pr_As = n[7];
-  q.k_odom = Robust{n[8], x[0], x[1], x[2]};
-  q.k_plane = Robust{n[9], x[3], x[4], x[5]};
-  q.k_prior = Robust{n[10], x[6], x[7], x[8]};
-  return q;
-}
-
-template <typename K, typename IO>
-int launch(K kernel, const Problem& q, const IO& io, int smem, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<1, kThreads, smem, (cudaStream_t)stream>>>(q, io);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Shared memory of K6 (which 0) or K7 (which 1) at these sizes (bytes)
@@ -743,9 +549,8 @@ extern "C" int popup_lm_smem_bytes(int W, int L, int F, int O, int P,
   return (int)sizeof(float) * words;
 }
 
-// p: the shared slots, then r, Jp, Jl, lam, Hpp, B, G, rhs, pm, Hll_inv,
-// bl; n: W, L, F, O, P, the three sqrt-info strides, the three robust
-// kinds; x: the three robust (k, k^2, 2k).
+// p: the shared slots (make_problem), then r, Jp, Jl, lam, Hpp, B, G,
+// rhs, pm, Hll_inv, bl; n and x: the shared ints and floats.
 extern "C" int popup_lm_assemble(void* const* p, const int* n, const float* x,
                                  void* stream) {
   const Problem q = make_problem(p, n, x);
@@ -762,13 +567,14 @@ extern "C" int popup_lm_assemble(void* const* p, const int* n, const float* x,
   io.pm = (float*)o[8];
   io.Hll_inv = (float*)o[9];
   io.bl = (float*)o[10];
-  return launch(lm_assemble_kernel, q, io,
-                popup_lm_smem_bytes(q.W, q.L, q.F, q.O, q.P, 0), stream);
+  return launch_block(lm_assemble_kernel, kThreads,
+                      popup_lm_smem_bytes(q.W, q.L, q.F, q.O, q.P, 0), stream,
+                      q, io);
 }
 
 // p: the shared slots, then x (null: the cost only), G, Hll_inv, bl,
-// costs, lams, norms, accepted, R_out, t_out, planes_out; n as above,
-// then k; x as above, then lam0, lam_up, lam_down.
+// costs, lams, norms, accepted, R_out, t_out, planes_out; n: the shared
+// ints, then k; x: the shared floats, then lam0, lam_up, lam_down.
 extern "C" int popup_lm_trial(void* const* p, const int* n, const float* x,
                               void* stream) {
   const Problem q = make_problem(p, n, x);
@@ -785,10 +591,11 @@ extern "C" int popup_lm_trial(void* const* p, const int* n, const float* x,
   io.R_out = (float*)o[8];
   io.t_out = (float*)o[9];
   io.planes_out = (float*)o[10];
-  io.k = n[11];
-  io.lam0 = x[9];
-  io.lam_up = x[10];
-  io.lam_down = x[11];
-  return launch(lm_trial_kernel, q, io,
-                popup_lm_smem_bytes(q.W, q.L, q.F, q.O, q.P, 1), stream);
+  io.k = n[kOwnInt];
+  io.lam0 = x[kOwnFloat];
+  io.lam_up = x[kOwnFloat + 1];
+  io.lam_down = x[kOwnFloat + 2];
+  return launch_block(lm_trial_kernel, kThreads,
+                      popup_lm_smem_bytes(q.W, q.L, q.F, q.O, q.P, 1), stream,
+                      q, io);
 }

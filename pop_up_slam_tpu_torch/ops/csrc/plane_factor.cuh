@@ -1,8 +1,9 @@
-// One pose-plane factor's whitened residual and Jacobians, as a scalar
-// device function: the closed form of
-// pop_up_slam_tpu/ops/plane_jacobians.py::_plane_kernel, shared by the
-// standalone plane-Jacobian kernel (plane_terms.cu) and the fused
-// Gauss-Newton kernel (fused_gn.cu, which then applies its IRLS weight).
+// One pose-plane factor as scalar device functions, every plane-factor
+// formula of the kernels in one file: its whitened residual and Jacobians
+// (the closed form of pop_up_slam_tpu/ops/plane_jacobians.py::_plane_kernel,
+// shared by the standalone plane-Jacobian kernel plane_terms.cu and the
+// fused Gauss-Newton kernel fused_gn.cu, which then applies its IRLS
+// weight), and its residual alone (the LM trial kernel, lm_step.cu).
 #pragma once
 
 #include "lie.cuh"
@@ -90,6 +91,36 @@ __device__ inline void plane_terms_one(const float* R_wc, const float* t_wc,
   lie::mv3(A, r, r_out);
   lie::mmn(A, Jp, Jp_out, 3, 3, 6);
   lie::mmn(A, Jl, Jl_out, 3, 3, 3);
+}
+
+// graph.py's plane_residual: A hessian_local(transform(pi_w, T_wc^-1),
+// pi_meas), the prediction normalized on S^3 first.
+__device__ inline void plane_residual(const float* R_wc, const float* t_wc,
+                                      const float* pi_w, const float* pim,
+                                      const float* A, float* r_out) {
+  float R_cw[9], t_cw[3], pc[4];
+  lie::transpose3(R_wc, R_cw);
+  lie::mv3(R_cw, t_wc, t_cw);
+  for (int k = 0; k < 3; ++k) t_cw[k] = -t_cw[k];
+  lie::mv3(R_cw, pi_w, pc);
+  pc[3] = pi_w[3] - lie::dot3(t_cw, pc);
+  lie::plane_normalize(pc);
+  const float cp = fmaxf(sqrtf(lie::dot3(pc, pc)), 1e-9f);
+  const float cm = fmaxf(sqrtf(lie::dot3(pim, pim)), 1e-9f);
+  float np[3], nm[3];
+  for (int k = 0; k < 3; ++k) {
+    np[k] = pc[k] / cp;
+    nm[k] = pim[k] / cm;
+  }
+  const float dp = pc[3] / cp;
+  float dm = pim[3] / cm;
+  const float s = lie::dot3(np, nm) >= 0.0f ? 1.0f : -1.0f;
+  for (int k = 0; k < 3; ++k) nm[k] *= s;
+  dm *= s;
+  float B0[3], B1[3];
+  lie::normal_tangent_cols(nm, B0, B1);
+  const float r[3] = {lie::dot3(B0, np), lie::dot3(B1, np), dp - dm};
+  lie::mv3(A, r, r_out);
 }
 
 }  // namespace popup

@@ -11,7 +11,10 @@ sanitization, SE(3)/S^3 retraction — plus the exiting keyframe's
 marginal, in one thread block.  At ~1 MFLOP per iteration it is
 latency-bound; the design keeps the whole problem resident in shared
 memory across iterations, assembles the normal equations by gathering
-(no atomics: deterministic), and launches once per keyframe.
+(no atomics: deterministic), and launches once per keyframe.  It receives
+the window and factors as K6 and K7 do (:func:`._problem.pack` and
+``csrc/factor_graph.cuh``, which holds the factor arithmetic the three
+share).
 
 The plain version (CPU tensors) is the per-op chain the reference pins
 its fused body against: the marginal from the MARG block, substituted
@@ -21,18 +24,14 @@ analytic Jacobians.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .._device import const
 from ..factors.graph import Factors, Window
 from ..factors.robust import RobustConfig
 from ..geometry import se3
-from ._build import check, check_stamps, library
-
-MAX_SMEM = 232448   # bytes of shared memory one H100 block may use
-_KINDS = {"none": 0, "huber": 1, "cauchy": 2}
+from ._build import check_inputs, check_stamps, library
+from ._problem import MAX_SMEM, _as, _launch, check_window, pack
 
 
 def smem_bytes(W: int, L: int, F: int, O: int, P: int) -> int:
@@ -146,10 +145,6 @@ def fused_gn_plain(window: Window, factors: Factors, iters: int, damping,
     return w_opt, costs
 
 
-def _f32(x: torch.Tensor, *shape) -> torch.Tensor:
-    return x.reshape(*shape).to(torch.float32).contiguous()
-
-
 def n_stamps(iters: int) -> int:
     """Slots of the kernel's phase-stamp buffer: start, load, marginal,
     then 8 phases per iteration (``stamp`` in csrc/fused_gn.cu)."""
@@ -189,50 +184,27 @@ def fused_gn_solve(window: Window, factors: Factors, iters: int = 2,
     if not fused_gn_supported(W, L, F, O, P):
         raise ValueError(f"fused_gn_solve: shape (W={W}, L={L}, F={F}, "
                          f"O={O}, P={P}) exceeds the shared-memory budget")
-    bools = torch.cat([window.pose_valid, window.pose_fixed, window.lm_valid,
-                       pf.valid, od.valid, pr.valid]).to(torch.bool)
-    idx = torch.cat([pf.pose_idx, pf.lm_idx, od.i, od.j, pr.idx]).to(
-        torch.int32)
-    ins = [
-        _f32(window.R, W, 9), _f32(window.t, W, 3), _f32(window.planes, L, 4),
-        _f32(pr.R, P, 9), _f32(pr.t, P, 3), _f32(pr.sqrt_info, P, 36),
-        _f32(pf.pi_meas, F, 4), _f32(pf.sqrt_info, F, 9),
-        _f32(od.R_meas, O, 9), _f32(od.t_meas, O, 3),
-        _f32(od.sqrt_info, O, 36), bools.contiguous(), idx.contiguous(),
-    ]
-    if any(x.device != dev for x in ins):
-        raise ValueError("fused_gn_solve: all inputs must lie on one device")
-    if marg is not None:
-        marg = _f32(marg, 8, 16)
-        if marg.device != dev:
-            raise ValueError("fused_gn_solve: marg on another device")
-        adiag, eps, floor = marg_static
-        host_static = (ctypes.c_float * 8)(*adiag, eps, floor)
-        static_ptr = ctypes.addressof(host_static)
-    else:
-        static_ptr = None
-
-    check_stamps("fused_gn_solve", stamps, dev, n_stamps(iters))
     f32 = torch.float32
+    window = window._replace(R=_as(window.R, f32), t=_as(window.t, f32),
+                             planes=_as(window.planes, f32))
+    check_window("fused_gn_solve", window)
+    packed = pack(window, factors, robust)
+    static = (0.0,) * 8
+    if marg is not None:
+        marg = _as(marg, f32)
+        check_inputs("fused_gn_solve", dev, (marg, (8, 16)))
+        adiag, eps, floor = marg_static
+        static = (*adiag, eps, floor)
+    check_stamps("fused_gn_solve", stamps, dev, n_stamps(iters))
     R_out = torch.empty((W, 3, 3), dtype=f32, device=dev)
     t_out = torch.empty((W, 3), dtype=f32, device=dev)
     planes_out = torch.empty((L, 4), dtype=f32, device=dev)
     costs = torch.empty((iters,), dtype=f32, device=dev)
     m_sqrt = torch.empty((6, 6), dtype=f32, device=dev)
-    lib = library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     fused_gn_solve.launches += 1
-    check(lib.popup_fused_gn(
-        *(x.data_ptr() for x in ins),
-        marg.data_ptr() if marg is not None else None,
-        float(damping), W, L, F, O, P, iters,
-        _KINDS[robust.odom.kind], float(robust.odom.scale),
-        _KINDS[robust.plane.kind], float(robust.plane.scale),
-        _KINDS[robust.prior.kind], float(robust.prior.scale),
-        static_ptr, R_out.data_ptr(), t_out.data_ptr(), planes_out.data_ptr(),
-        costs.data_ptr(), m_sqrt.data_ptr(),
-        stamps.data_ptr() if stamps is not None else None, stream,
-    ), "fused_gn_solve")
+    _launch(library().popup_fused_gn, "fused_gn_solve", window, packed,
+            (marg, R_out, t_out, planes_out, costs, m_sqrt, stamps),
+            ints=(iters,), floats=(float(damping), *static))
     w_opt = window._replace(R=R_out, t=t_out, planes=planes_out)
     if marg is not None:
         return w_opt, costs, m_sqrt

@@ -19,6 +19,9 @@ an iteration for ~1 MFLOP of work, and are latency-bound like K1.
   statistics in place (:class:`LMStats`) and the selected window to fresh
   buffers.  Lambda and the decision never leave the device.
 
+Both receive the window and factors as K1 does (:func:`._problem.pack`,
+once a call, and ``csrc/factor_graph.cuh``).
+
 The plain versions compose the per-op functions they replace:
 :func:`lm_assemble_plain` is ``reduce_operands(linearize(...))``, and
 :func:`lm_trial_plain` is ``_reduce``'s back-substitution with
@@ -27,7 +30,6 @@ The plain versions compose the per-op functions they replace:
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -35,11 +37,9 @@ import torch
 from ..factors.graph import Factors, Window, linearize, total_cost
 from ..factors.robust import RobustConfig
 from ..solver.gauss_newton import apply_update, select_window
-from ._build import check, check_inputs, library
+from ._build import check_inputs, library
+from ._problem import MAX_SMEM, Packed, _launch, check_window, pack
 from .schur import reduce_operands
-
-MAX_SMEM = 232448   # bytes of shared memory one H100 block may use
-_KINDS = {"none": 0, "huber": 1, "cauchy": 2}
 
 
 class Operands(NamedTuple):
@@ -86,96 +86,6 @@ def lm_step_supported(W: int, L: int, F: int, O: int, P: int) -> bool:
     return max(smem(W, L, F, O, P, 0), smem(W, L, F, O, P, 1)) <= MAX_SMEM
 
 
-class Packed(NamedTuple):
-    """The factors as the kernels read them, packed once a call."""
-
-    tensors: tuple   # the shared slots after the window's R, t, planes
-    ints: tuple      # W, L, F, O, P, sqrt-info strides, robust kinds
-    floats: tuple    # (k, k^2, 2k) of the odometry, plane, prior kernels
-
-
-def _as(x: torch.Tensor, dtype) -> torch.Tensor:
-    return (x if x.dtype == dtype else x.to(dtype)).contiguous()
-
-
-def _sqrt_rows(A: torch.Tensor, n: int, d: int):
-    """(tensor, row stride) of a stack of n (d, d) sqrt-info matrices: one
-    matrix read n times where it is broadcast (stride 0, as the frame step
-    builds them), else contiguous rows."""
-    if n > 0 and A.stride() == (0, d, 1):
-        return A[0], 0
-    return _as(A, torch.float32).reshape(n, d, d), d * d
-
-
-def pack(window: Window, factors: Factors,
-         robust: RobustConfig | None = None) -> Packed | None:
-    """The kernels' view of ``factors`` and the window's masks (None for
-    CPU tensors): no copy where they are contiguous and of the kernels'
-    dtypes already."""
-    dev = window.t.device
-    if dev.type != "cuda":
-        return None
-    if robust is None:
-        robust = RobustConfig()
-    od, pf, pr = factors
-    W, L = window.window_size, window.max_landmarks
-    F, O, P = pf.valid.shape[0], od.valid.shape[0], pr.valid.shape[0]
-    b, i32, f32 = torch.bool, torch.int32, torch.float32
-    pf_A, pf_As = _sqrt_rows(pf.sqrt_info, F, 3)
-    od_A, od_As = _sqrt_rows(od.sqrt_info, O, 6)
-    pr_A, pr_As = _sqrt_rows(pr.sqrt_info, P, 6)
-    specs = (
-        (_as(window.pose_valid, b), (W,), b),
-        (_as(window.pose_fixed, b), (W,), b),
-        (_as(window.lm_valid, b), (L,), b),
-        (_as(pf.pose_idx, i32), (F,), i32), (_as(pf.lm_idx, i32), (F,), i32),
-        (_as(pf.pi_meas, f32), (F, 4)),
-        (pf_A, (3, 3) if pf_As == 0 else (F, 3, 3)),
-        (_as(pf.valid, b), (F,), b),
-        (_as(od.i, i32), (O,), i32), (_as(od.j, i32), (O,), i32),
-        (_as(od.R_meas, f32), (O, 3, 3)), (_as(od.t_meas, f32), (O, 3)),
-        (od_A, (6, 6) if od_As == 0 else (O, 6, 6)),
-        (_as(od.valid, b), (O,), b),
-        (_as(pr.idx, i32), (P,), i32),
-        (_as(pr.R, f32), (P, 3, 3)), (_as(pr.t, f32), (P, 3)),
-        (pr_A, (6, 6) if pr_As == 0 else (P, 6, 6)),
-        (_as(pr.valid, b), (P,), b),
-    )
-    check_inputs("lm_step", dev, *specs)
-    kinds, consts = [], []
-    for kern in robust:
-        if kern.kind not in _KINDS:
-            raise ValueError(f"unknown robust kernel '{kern.kind}'")
-        k = float(kern.scale)
-        kinds.append(_KINDS[kern.kind])
-        consts += [k, k * k, 2.0 * k]
-    return Packed(tuple(s[0] for s in specs),
-                  (W, L, F, O, P, pf_As, od_As, pr_As, *kinds), tuple(consts))
-
-
-def _launch(fn, what: str, window: Window, packed: Packed, own, ints=(),
-            floats=()) -> None:
-    """Call a kernel's C entry with the shared slots (the window's R, t,
-    planes, then ``packed``), the kernel's own pointers (None: null) and
-    the integer and float parameters."""
-    ptrs = [window.R.data_ptr(), window.t.data_ptr(), window.planes.data_ptr()]
-    ptrs += [x.data_ptr() for x in packed.tensors]
-    ptrs += [None if x is None else x.data_ptr() for x in own]
-    p = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    n = (ctypes.c_int * (len(packed.ints) + len(ints)))(*packed.ints, *ints)
-    x = (ctypes.c_float * (len(packed.floats) + len(floats)))(
-        *packed.floats, *floats)
-    stream = torch.cuda.current_stream(window.t.device).cuda_stream
-    check(fn(ctypes.addressof(p), ctypes.addressof(n), ctypes.addressof(x),
-             stream), what)
-
-
-def _check_window(name: str, window: Window) -> None:
-    W, L = window.window_size, window.max_landmarks
-    check_inputs(name, window.t.device, (window.R, (W, 3, 3)),
-                 (window.t, (W, 3)), (window.planes, (L, 4)))
-
-
 def lm_assemble_plain(window: Window, factors: Factors, lam: torch.Tensor,
                       robust: RobustConfig | None = None) -> Operands:
     """Plain version of K6: the per-op linearization (K5's plain form for
@@ -200,7 +110,7 @@ def lm_assemble(window: Window, factors: Factors, terms, lam: torch.Tensor,
         packed = pack(window, factors, robust)
     W, L, F = packed.ints[:3]
     r, Jp, Jl = terms
-    _check_window("lm_assemble", window)
+    check_window("lm_assemble", window)
     check_inputs("lm_assemble", dev, (r, (F, 3)), (Jp, (F, 3, 6)),
                  (Jl, (F, 3, 3)), (lam, ()))
     n6, n3 = 6 * W, 3 * L
@@ -268,7 +178,7 @@ def lm_trial(window: Window, factors: Factors, stats: LMStats, k: int,
         packed = pack(window, factors, robust)
     W, L = packed.ints[:2]
     K = stats.norms.shape[0]
-    _check_window("lm_trial", window)
+    check_window("lm_trial", window)
     check_inputs("lm_trial", dev, (stats.costs, (K + 1,)),
                  (stats.lams, (K + 1,)), (stats.norms, (K,)),
                  (stats.accepted, (K,), torch.bool))

@@ -74,16 +74,6 @@ def _device_events(prof):
             and not e.name.startswith("stage:")]
 
 
-def _busy_us(intervals):
-    total, end = 0.0, -1.0
-    for s, e in sorted(intervals):
-        if e <= end:
-            continue
-        total += e - max(s, end)
-        end = e
-    return total
-
-
 K1_PHASES = ("linearize", "gather", "B", "S", "cholesky",
              "back_substitution", "sanitize", "retract")
 
@@ -439,8 +429,10 @@ def main() -> int:
     for mod, name, fn in originals:
         setattr(mod, name, fn)
 
+    from portbench.trace import busy_us
+
     dev = _device_events(prof)
-    busy_us = _busy_us([(e.time_range.start, e.time_range.end) for e in dev])
+    busy = busy_us([(e.time_range.start, e.time_range.end) for e in dev])
     first = min(e.time_range.start for e in prof.events())
     last = max(e.time_range.end for e in prof.events())
     cpu = [e for e in prof.events() if e.device_type.name == "CPU"]
@@ -466,8 +458,8 @@ def main() -> int:
         "profiled_frames": f,
         "wall_ms_per_frame": wall_s * 1e3 / f,
         "trace_window_ms": (last - first) / 1e3,
-        "device_busy_ms": busy_us / 1e3,
-        "device_busy_share": busy_us / max(last - first, 1e-9),
+        "device_busy_ms": busy / 1e3,
+        "device_busy_share": busy / max(last - first, 1e-9),
         "kernels_per_frame": len(dev) / f,
         "stream_syncs_per_frame": n_sync / f,
         "scalar_reads_per_frame": n_item / f,

@@ -27,7 +27,7 @@ from pop_up_slam_tpu_torch.geometry import se3
 from pop_up_slam_tpu_torch.geometry.camera import Intrinsics
 from pop_up_slam_tpu_torch.factors import graph
 from pop_up_slam_tpu_torch.ops import cholesky, depth_render, fused_gn
-from pop_up_slam_tpu_torch.ops import plane_jacobians, schur
+from pop_up_slam_tpu_torch.ops import lm_step, plane_jacobians, schur
 from pop_up_slam_tpu_torch.pipeline import slam as tslam
 from pop_up_slam_tpu_torch.pipeline.offline import run_sequence_chunked
 from pop_up_slam_tpu_torch.popup import popup as tpp
@@ -37,6 +37,13 @@ _ = cuda_device  # fixture
 
 ROBUST = RobustConfig(odom=RobustKernel("huber", 2.0),
                       plane=RobustKernel("cauchy", 3.0))
+# a scale whose square is not exact in f32, and whose f32 square rounds
+# otherwise than k^2 taken in double and rounded once, as
+# factors/robust.py rounds it
+ROBUST_INEXACT = RobustConfig(odom=RobustKernel("huber", 0.1),
+                              plane=RobustKernel("cauchy", 0.1),
+                              prior=RobustKernel("cauchy", 0.1))
+_ROBUSTS = {False: RobustConfig(), True: ROBUST, "inexact": ROBUST_INEXACT}
 MARG_STATIC = ((1 / 0.03,) * 3 + (1 / 0.01,) * 3, 1e-6, 4.0)
 
 
@@ -149,12 +156,11 @@ def _marg(w, f, full):
 
 @pytest.mark.parametrize("marg,full,robust", [
     (False, False, False), (False, False, True), (True, True, True),
-    (True, False, False),
+    (True, False, False), (False, False, "inexact"), (True, True, "inexact"),
 ])
 def test_fused_gn_kernel_matches_plain(cuda_device, marg, full, robust):
     w, f = _problem(5, cuda_device)
-    kw = dict(iters=2, damping=1e-5,
-              robust=ROBUST if robust else RobustConfig())
+    kw = dict(iters=2, damping=1e-5, robust=_ROBUSTS[robust])
     if marg:
         kw.update(marg=_marg(w, f, full), marg_static=MARG_STATIC)
     before = fused_gn.fused_gn_solve.launches
@@ -202,6 +208,51 @@ def test_fused_gn_gate_matches_kernel_layout(cuda_device, shape):
 
     lib = _build.library()
     assert lib.popup_fused_gn_smem_bytes(*shape) == fused_gn.smem_bytes(*shape)
+
+
+def _one_pose_factor(w, f, o):
+    """The problem with pose factor o alone (odometry o < O, else the
+    prior o - O), no plane factor, and only the pose its j side names
+    free."""
+    od, pr = f.odom, f.priors
+    O = od.valid.shape[0]
+    j = int(od.j[o]) if o < O else int(pr.idx[o - O])
+    fixed = torch.ones_like(w.pose_fixed)
+    fixed[j] = False
+    only = torch.arange(O + pr.valid.shape[0], device=w.t.device) == o
+    f = f._replace(odom=od._replace(valid=od.valid & only[:O]),
+                   priors=pr._replace(valid=pr.valid & only[O:]),
+                   planes=f.planes._replace(
+                       valid=torch.zeros_like(f.planes.valid)))
+    return w._replace(pose_fixed=fixed), f
+
+
+def test_fused_gn_and_lm_kernels_share_the_pose_factor(cuda_device):
+    """K1 and K6/K7 linearize a pose factor through one header: on each
+    pose factor alone, at robust scales whose squares are not exact in
+    f32, K1's first cost equals K7's bit for bit (the residual and rho),
+    and K1's Gauss-Newton step equals the LM route's step (K6's IRLS
+    weights, K3a, K7) at the same damping."""
+    w0, f0 = _problem(5, cuda_device)
+    # the prior off its mean: every factor has a step to take
+    f0 = f0._replace(priors=f0.priors._replace(t=f0.priors.t + 0.05))
+    lam = 1e-5
+    for o in range(f0.odom.valid.shape[0] + f0.priors.valid.shape[0]):
+        w, f = _one_pose_factor(w0, f0, o)
+        w_k1, c_k1 = fused_gn.fused_gn_solve(w, f, iters=1, damping=lam,
+                                             robust=ROBUST_INEXACT)
+        st = lm_step.new_stats(1, cuda_device)
+        lm_step.lm_trial(w, f, st, 0, lam0=lam, robust=ROBUST_INEXACT)
+        terms = plane_jacobians.plane_terms(w, f.planes)
+        ops = lm_step.lm_assemble(w, f, terms, st.lams[0], ROBUST_INEXACT)
+        _, x = schur.schur_reduce_small(ops.Hpp, ops.B, ops.G, ops.rhs,
+                                        ops.pm, st.lams[0])
+        w_lm = lm_step.lm_trial(w, f, st, 0, (x, ops), robust=ROBUST_INEXACT)
+        torch.cuda.synchronize()
+        assert torch.equal(c_k1[0], st.costs[0]), o
+        assert bool(st.accepted[0]), o
+        assert_close(w_k1.R, w_lm.R, 1e-6, what=f"R {o}")
+        assert_close(w_k1.t, w_lm.t, 1e-6, what=f"t {o}")
 
 
 def test_fused_gn_kernel_is_deterministic(cuda_device):

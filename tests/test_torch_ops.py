@@ -118,3 +118,24 @@ def test_check_inputs(case):
         return
     with pytest.raises(ValueError, match=want[case]):
         check_inputs("k", CPU, (idx, (4,), torch.int32), specs[case])
+
+
+def _csrc_files():
+    from pop_up_slam_tpu_torch.ops import _build
+
+    return sorted(p.name for p in _build.CSRC.iterdir() if p.is_file())
+
+
+@pytest.mark.parametrize("name", _csrc_files())
+def test_build_covers_every_kernel_source(name):
+    """Every file under ``ops/csrc/`` is a listed source or header, so the
+    build's hash covers it, and every ``#include "..."`` in it names a
+    listed header: a header left out would let a stale build load."""
+    import re
+
+    from pop_up_slam_tpu_torch.ops import _build
+
+    assert name in _build.SOURCES + _build.HEADERS
+    text = (_build.CSRC / name).read_text()
+    for inc in re.findall(r'^\s*#include\s+"([^"]+)"', text, re.M):
+        assert inc in _build.HEADERS, f"{name} includes unlisted {inc}"
