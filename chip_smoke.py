@@ -18,7 +18,10 @@
    K1 (fused GN) at W=8, L=64, F=72, O=7, P=1, 2 iterations, with the
    marginal block, on a state captured mid-sequence with the window
    full, two launches bit-identical, its in-kernel time from its
-   ``%globaltimer`` stamps; K5 (plane Jacobians) on that state's 72
+   ``%globaltimer`` stamps; K8 (the exiting keyframe's marginal) on that
+   state against its plain version and within one unit in the last place
+   of the largest entry of K1's marginal, two launches bit-identical, the
+   sha256 of its output; K5 (plane Jacobians) on that state's 72
    factors and a random F=37 set with invalid factors (the sha256 of its
    outputs on both, two launches bit-identical, its in-kernel time from
    its stamps; the count of factors whose measured normal lies within
@@ -60,7 +63,8 @@
    ``solver="dogleg"`` over the 144 frames at the production widths (K3a
    and K5 twice per keyframe; LM's K6 twice and K7 three times), and
    ``solver="lm"`` with ``window_size=24`` over the first 48 frames
-   (6W = 144: K3b, K4 and K5 twice per keyframe).
+   (6W = 144: K3b, K4 and K5 twice per keyframe); K8 once a keyframe on
+   each (and on the sharded runner's paths: every route but K1's).
    Each is held as ``run_path`` says: the free run over ``frames_held``
    (the frames before its pop-up first finds another set of valid walls
    than the reference's), its accept decisions before the pop-up's
@@ -148,9 +152,9 @@ import time
 import numpy as np
 
 from portbench.work.k1 import (
-    _ADJOINT, _BETWEEN, _COMPOSE, _INV3, _JR_INV, _MV3, _NORMAL_COLS,
-    _PLANE_NORMALIZE, _ROBUST, _SE3_EXP, _SE3_LOG, _TANGENT4, _chol_ops, _mm,
-    _sym, k1_bytes, k1_ops)
+    _ADJOINT, _BETWEEN, _COMPOSE, _INV3, _JR_INV, _MARGINAL, _MV3,
+    _NORMAL_COLS, _PLANE_NORMALIZE, _ROBUST, _SE3_EXP, _SE3_LOG, _TANGENT4,
+    _chol_ops, _mm, _sym, k1_bytes, k1_ops)
 from portbench.work.k2 import k2_bytes, k2_ops
 from portbench.work.k3a import k3a_bytes, k3a_ops
 from portbench.work.k5 import k5_bytes, k5_ops
@@ -166,6 +170,12 @@ TRAJ_BOUND_M = 0.015      # the reference's own cross-path bound (15 mm)
 K4_TOL = 2e-4             # as tests/test_ops.py chol_solve_pallas
 K2_RTOL, K2_ATOL = 1e-4, 1e-3   # as tests/test_ops.py depth render
 K1_TOL = 5e-3             # fused vs per-op GN (tests/test_fused_gn.py)
+K8_TOL = 2e-6             # of the largest entry, as tests/test_torch_marginal.py
+# K8 against K1's marginal, of the largest entry (one unit in its last
+# place, as tests/test_torch_marginal.py): the two run csrc/marginal.cuh,
+# but nvcc contracts some multiply-adds of its SE(3) Jacobian otherwise in
+# the two kernels (PERF.md)
+K8_K1_TOL = 2.0 ** -23
 K5_TOL = 1e-5             # rtol = atol, as tests/test_ops.py plane terms
 K3A_TOL = (1e-4, 1e-4)    # (rtol, atol) on the steps, tests/test_ops.py
 K3A_S_TOL = (1e-5, 1e-4)  # (rtol, atol) on S
@@ -1176,6 +1186,65 @@ def check_k1(torch, _build, fused_gn, slam_mod, state, scfg):
         library_ms=None,
         kernel_ms_stamped=kernel_ms,
         work=(nbytes, ops),
+    )
+    return err, timing
+
+
+def k8_work():
+    """(bytes, operations) of one K8 launch: slots 0 and 1 of the window,
+    the exiting odometry and its valid flag, the prior read once, the
+    (6, 6) sqrt-info written once; K1's marginal (portbench/work/k1.py)
+    without its blend into the prior factor (4 operations on each of the
+    48 prior entries)."""
+    return 4 * (2 * 12 + 12 + 48) + 1 + 4 * 36, _MARGINAL - 4 * 48
+
+
+def check_k8(torch, marginal, fused_gn, slam_mod, state, scfg):
+    """K8 against its plain version on a mid-sequence state (window full),
+    within K8_K1_TOL of K1's marginal on the same state (both run
+    csrc/marginal.cuh), two launches bit-identical, and the sha256 of its
+    output for a bit-for-bit comparison with another build."""
+    w0 = state.window
+    ms = slam_mod._marg_static(scfg)
+    args = (w0.R, w0.t, state.odom_R, state.odom_t, state.odom_valid,
+            state.mprior_R, state.mprior_t, state.mprior_sqrt, *ms)
+    before = marginal.exiting_marginal.launches
+    mk = marginal.exiting_marginal(*args)
+    assert marginal.exiting_marginal.launches == before + 1
+    mp = marginal.marginal_sqrt(
+        w0.R[0], w0.t[0], w0.R[1], w0.t[1], state.odom_R[0],
+        state.odom_t[0], state.odom_valid[0], state.mprior_R,
+        state.mprior_t, state.mprior_sqrt, *ms)
+    marg = fused_gn.pack_marg(
+        w0.R[0], w0.t[0], w0.R[1], w0.t[1], state.odom_R[0],
+        state.odom_t[0], state.odom_valid[0], state.mprior_R,
+        state.mprior_t, state.mprior_sqrt, state.n_kf >= scfg.window_size)
+    _, _, m_k1 = fused_gn.fused_gn_solve(
+        w0, slam_mod._build_factors(state, scfg), iters=scfg.gn_iters,
+        damping=scfg.damping, robust=scfg.robust, marg=marg, marg_static=ms)
+    mk2 = marginal.exiting_marginal(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(mk).all())
+    err = float((mk - mp).abs().max())
+    tol = K8_TOL * float(mp.abs().max())
+    same = torch.equal(mk, mk2)
+    k1_gap = float((mk - m_k1).abs().max())
+    k1_tol = K8_K1_TOL * float(m_k1.abs().max())
+    ok = err <= tol and same and k1_gap <= k1_tol
+    print(json.dumps({"check": "K8", "max_abs_err": err, "tol": tol,
+                      "two_launches_bit_identical": same,
+                      "k1_marginal_gap": k1_gap, "k1_tol": k1_tol,
+                      "sha256": sha256_of(mk), "pass": ok}))
+    assert ok, ("K8 disagrees with its plain version or K1's marginal, or "
+                "is not deterministic")
+    timing = dict(
+        ms=_time_ms(lambda: marginal.exiting_marginal(*args)),
+        plain_ms=_time_ms(lambda: marginal.marginal_sqrt(
+            w0.R[0], w0.t[0], w0.R[1], w0.t[1], state.odom_R[0],
+            state.odom_t[0], state.odom_valid[0], state.mprior_R,
+            state.mprior_t, state.mprior_sqrt, *ms), n=20),
+        library_ms=None,
+        work=k8_work(),
     )
     return err, timing
 
@@ -2609,7 +2678,9 @@ def run_sharded_path(torch, sharded, pp, offline, se3, convert, counters,
     assert float(anchored.max()) <= TRAJ_BOUND_M, float(anchored.max())
     assert not differ, f"sharded pop-up parts at frames {differ}"
     assert launches["plane_terms"] == scfg.gn_iters * keyframes, launches
-    assert sum(launches.values()) == launches["plane_terms"], launches
+    assert launches["exiting_marginal"] == keyframes, launches
+    assert sum(launches.values()) == (launches["plane_terms"]
+                                      + keyframes), launches
     assert collectives["all_reduce"] == scfg.gn_iters * keyframes, out
     return launches
 
@@ -2782,8 +2853,10 @@ def run_single_host_paths(torch, cli, counters, ref, gpu, dev="cuda"):
         assert out[preset]["rc"] == 0 and set(s) == keys, line
         assert s["finite"] and s["n_devices"] == 1, line
         c = out[preset]["launches"]
-        assert c["plane_terms"] == 2 * (s["n_keyframes"] - 1), line
-        assert sum(c.values()) == c["plane_terms"], line
+        solves = s["n_keyframes"] - 1
+        assert c["plane_terms"] == 2 * solves, line
+        assert c["exiting_marginal"] == solves, line
+        assert sum(c.values()) == c["plane_terms"] + solves, line
     assert sh["frames"] == int(ref["cli_single_host.frames"]), line
     assert abs(sh["ate_rmse_m"] - ref_ate) <= SINGLE_HOST_ATE_BOUND_M, line
     return out["single_host"]["launches"]
@@ -2902,7 +2975,7 @@ def main() -> int:
     from pop_up_slam_tpu_torch.ops import fused_gn
     from pop_up_slam_tpu_torch.ops import plane_jacobians as pj
     from pop_up_slam_tpu_torch.ops import schur as ks
-    from pop_up_slam_tpu_torch.ops import lm_step
+    from pop_up_slam_tpu_torch.ops import lm_step, marginal
     from pop_up_slam_tpu_torch.pipeline import (
         SlamConfig, run_sequence_chunked, slam_init,
     )
@@ -2957,6 +3030,8 @@ def main() -> int:
                                      K_cpu, pcfg, scfg)
     st_mid = _to(st_cpu, "cuda")
     k1_err, k1_t = check_k1(torch, _build, fused_gn, slam_mod, st_mid, scfg)
+    k8_err, k8_t = check_k8(torch, marginal, fused_gn, slam_mod, st_mid,
+                            scfg)
     f_mid = slam_mod._build_factors(st_mid, scfg)
     k5_err, k5_t = check_k5(torch, pj, st_mid.window, f_mid.planes,
                             torch.device("cuda"))
@@ -2982,7 +3057,8 @@ def main() -> int:
                 "schur_gemm": ks.schur_gemm,
                 "plane_terms": pj.plane_terms,
                 "lm_assemble": lm_step.lm_assemble,
-                "lm_trial": lm_step.lm_trial}
+                "lm_trial": lm_step.lm_trial,
+                "exiting_marginal": marginal.exiting_marginal}
     masks_d = torch.as_tensor(masks, device="cuda")
     inputs = (masks_d, oR, ot, R0, t0, K, pcfg)
     n = masks.shape[0]
@@ -2998,7 +3074,7 @@ def main() -> int:
     assert paths["gn"]["fused_gn_solve"] == n, paths["gn"]
     assert paths["gn"]["depth_render"] == n, paths["gn"]
     for k in ("schur_reduce_small", "schur_gemm", "plane_terms",
-              "lm_assemble", "lm_trial"):
+              "lm_assemble", "lm_trial", "exiting_marginal"):
         assert paths["gn"][k] == 0, paths["gn"]
     for name in ("lm", "dogleg"):
         t_ph = time.perf_counter()
@@ -3015,6 +3091,8 @@ def main() -> int:
         lm = name == "lm"
         assert c["lm_assemble"] == (2 * n if lm else 0), c
         assert c["lm_trial"] == (3 * n if lm else 0), c
+        # K8: the exiting keyframe's marginal, once a keyframe
+        assert c["exiting_marginal"] == n, c
     n24 = 48
     t_ph = time.perf_counter()
     paths["lm24"] = run_path(torch, "lm24", slam_mod, offline, se3, pp,
@@ -3026,6 +3104,7 @@ def main() -> int:
     assert c["schur_gemm"] == c["chol_solve"] == 2 * n24, c
     assert c["plane_terms"] == 2 * n24 and c["schur_reduce_small"] == 0, c
     assert c["fused_gn_solve"] == 0 and c["lm_assemble"] == 0, c
+    assert c["exiting_marginal"] == n24, c
 
     # ---- 5. the monocular paths ----
     ref_vo = np.load(os.path.join(ref_dir, "corridor_ref_vo.npz"))
@@ -3044,7 +3123,7 @@ def main() -> int:
             c, keyframes)
         assert c["depth_render"] == (n if fused else 0), c
         for k in ("chol_solve", "schur_reduce_small", "schur_gemm",
-                  "plane_terms"):
+                  "plane_terms", "exiting_marginal"):
             assert c[k] == 0, c
     assert popup_ok, "the pop-up at the reference's poses parts from it"
 
@@ -3165,6 +3244,10 @@ def main() -> int:
         row("K7 lm_trial", "lm_trial", "lm", src + "lm_step.cu",
             "none (the per-op back-substitution, apply_update, "
             "total_cost, accept/reject)", k7_err, k7_t),
+        row("K8 exiting_marginal", "exiting_marginal", "lm",
+            src + "marginal.cu",
+            "none (the per-op marginal_sqrt; K1 runs the same device "
+            "code, csrc/marginal.cuh)", k8_err, k8_t),
     ]
     b_ms, b_by = _bound(*k5_smooth_t["work"])
     k5["smoother_shape"] = {

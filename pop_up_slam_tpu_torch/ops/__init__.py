@@ -11,7 +11,9 @@ version (used for CPU tensors):
                          K4), the LM / dog-leg reduced solve;
 - :mod:`plane_jacobians` — K5, the closed-form plane-factor Jacobians;
 - :mod:`lm_step`       — K6 and K7, the LM iteration's assembly and its
-                         trial step around K5 and K3a.
+                         trial step around K5 and K3a;
+- :mod:`marginal`      — K8, the exiting keyframe's marginal sqrt-info
+                         (its device code is also K1's).
 
 Kernels are built from ``csrc/`` at first use (:mod:`._build`); nothing
 is compiled or loaded at import.
@@ -22,6 +24,7 @@ from . import (  # noqa: F401
     depth_render,
     fused_gn,
     lm_step,
+    marginal,
     plane_jacobians,
     schur,
 )
@@ -32,6 +35,7 @@ from .fused_gn import (  # noqa: F401
     fused_gn_supported,
     pack_marg,
 )
+from .marginal import exiting_marginal, marginal_sqrt  # noqa: F401
 from .plane_jacobians import plane_terms, plane_terms_analytic  # noqa: F401
 from .schur import (  # noqa: F401
     schur_gemm,

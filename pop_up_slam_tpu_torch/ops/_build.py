@@ -25,8 +25,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("chol_solve.cu", "depth_render.cu", "fused_gn.cu", "lm_step.cu",
-           "plane_terms.cu", "schur_reduce.cu")
-HEADERS = ("chol.cuh", "factor_graph.cuh", "lie.cuh", "plane_factor.cuh")
+           "marginal.cu", "plane_terms.cu", "schur_reduce.cu")
+HEADERS = ("chol.cuh", "factor_graph.cuh", "lie.cuh", "marginal.cuh",
+           "plane_factor.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +45,7 @@ _SIGNATURES = {
     "popup_lm_smem_bytes": [_I] * 6,
     "popup_lm_assemble": [_P] * 4,
     "popup_lm_trial": [_P] * 4,
+    "popup_marginal": [_P] * 3,
 }
 
 _lib = None

@@ -35,12 +35,14 @@
 // phase boundaries (Args::stamps) feed the profile script.  The window and
 // factors, their wiring, the robust kernels and the pose factor are
 // factor_graph.cuh's (shared with K6 and K7, lm_step.cu); the plane
-// factor is plane_factor.cuh's.
+// factor is plane_factor.cuh's; the marginal is marginal.cuh's (shared
+// with K8, marginal.cu).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "chol.cuh"
 #include "factor_graph.cuh"
+#include "marginal.cuh"
 #include "plane_factor.cuh"
 
 namespace {
@@ -48,8 +50,6 @@ namespace {
 using namespace popup;
 
 constexpr int kThreads = 512;  // measured against 256 (PERF.md)
-
-constexpr int kMargScratch = 14 * 36;  // the marginal's 6 x 6 matrices
 
 // Offsets (in 4-byte words) of the shared-memory arrays.
 struct Layout {
@@ -194,107 +194,22 @@ __device__ void weighted_pose_factor(const Problem& q, int o, int i, int j,
     for (int e = 0; e < 36; ++e) Ji_out[e] = Ji[e] * sw;
 }
 
-// C = op(A) B for 6 x 6 matrices (op(A) = A or A^T), spread over a warp:
-// lane e computes entries e and e + 32, each a 6-term sum in order.
-__device__ inline void warp_mm6(const float* A, bool at, const float* B,
-                                float* C, int lane) {
-  for (int e = lane; e < 36; e += 32) {
-    const int i = e / 6, j = e - 6 * i;
-    float s = 0.0f;
-    for (int p = 0; p < 6; ++p)
-      s += (at ? A[6 * p + i] : A[6 * i + p]) * B[6 * p + j];
-    C[e] = s;
-  }
-}
-
-// the exiting keyframe's marginal (pipeline/slam.py _marginalize_oldest)
-// from the MARG block, by one warp; overrides the prior factor when the
-// window is full.  Lanes 0 and 1 run the odometry and the prior residual
-// chains (between, log, J_r^-1) as the same code on different data, lane 2
-// the adjoint; the 6 x 6 products are spread over the warp; the 6 x 6
-// inverse and Cholesky stay on lane 0.  sc: kMargScratch floats.
-__device__ void marginal_warp(const Args& a, float* prR, float* prt,
-                              float* prA, float* sc) {
+// the exiting keyframe's marginal from the MARG block, by warp 0
+// (marginal.cuh, shared with K8); overrides the prior factor when the
+// window is full.  sc: kMargScratch floats.
+__device__ void k1_marginal(const Args& a, float* prR, float* prt,
+                            float* prA, float* sc) {
   const int lane = threadIdx.x & 31;
   const float* M = a.marg;
-  const float *R0 = M, *t0 = M + 9, *R1 = M + 16, *t1 = M + 25;
-  const float *Rm = M + 32, *tm = M + 41;
+  const float *R1 = M + 16, *t1 = M + 25;
   const float ov0 = M[48], full = M[49];
   const float *prRo = M + 64, *prto = M + 73, *prAo = M + 80;
-  float *Jro = sc, *Jrq = sc + 36, *AJ = sc + 72, *Ad = sc + 108;
-  float *J0 = sc + 144, *J1 = sc + 180, *Jq = sc + 216, *H00 = sc + 252;
-  float *H01 = sc + 288, *H11 = sc + 324, *H00i = sc + 360, *T = sc + 396;
-  float *Hs = sc + 432, *Lm = sc + 468;
-
-  if (lane < 2) {
-    // lane 0: log(Rm^-1 (R0^-1 R1)); lane 1: log(I^-1 (prR^-1 R0)), the
-    // identity step leaving the prior's relative pose exactly as it is
-    const bool od = lane == 0;
-    float Ra[9], ta[3], Rb[9], tb[3], Rc[9], tc[3];
-    for (int e = 0; e < 9; ++e) {
-      Ra[e] = od ? R0[e] : prRo[e];
-      Rb[e] = od ? R1[e] : R0[e];
-      Rc[e] = od ? Rm[e] : (e % 4 == 0 ? 1.0f : 0.0f);
-    }
-    for (int e = 0; e < 3; ++e) {
-      ta[e] = od ? t0[e] : prto[e];
-      tb[e] = od ? t1[e] : t0[e];
-      tc[e] = od ? tm[e] : 0.0f;
-    }
-    float Rr[9], tr[3], Re[9], te[3], xi[6], Jr[36];
-    lie::se3_between(Ra, ta, Rb, tb, Rr, tr);
-    lie::se3_between(Rc, tc, Rr, tr, Re, te);
-    lie::se3_log(Re, te, xi, xi + 3);
-    lie::se3_right_jacobian_inv(xi, xi + 3, Jr);
-    float* out = od ? Jro : Jrq;
-    for (int e = 0; e < 36; ++e) out[e] = Jr[e];
-  } else if (lane == 2) {
-    float R10[9], t10[3];
-    lie::se3_between(R1, t1, R0, t0, R10, t10);
-    lie::se3_adjoint(R10, t10, Ad);
-  }
-  __syncwarp();
-  const bool ovb = ov0 > 0.5f;
-  for (int e = lane; e < 36; e += 32) {
-    AJ[e] = a.adiag[e / 6] * Jro[e];
-    J1[e] = ovb ? AJ[e] : 0.0f;
-  }
-  warp_mm6(prAo, false, Jrq, Jq, lane);
-  __syncwarp();
-  warp_mm6(AJ, false, Ad, J0, lane);
-  __syncwarp();
-  for (int e = lane; e < 36; e += 32) J0[e] = ovb ? -J0[e] : 0.0f;
-  __syncwarp();
-  warp_mm6(J0, true, J0, H00, lane);
-  warp_mm6(Jq, true, Jq, T, lane);
-  warp_mm6(J0, true, J1, H01, lane);
-  warp_mm6(J1, true, J1, H11, lane);
-  __syncwarp();
-  for (int e = lane; e < 36; e += 32)
-    H00[e] += T[e] + (e % 7 == 0 ? a.eps_m : 0.0f);
-  __syncwarp();
-  if (lane == 0) lie::spd_inv6(H00, H00i);
-  __syncwarp();
-  warp_mm6(H01, true, H00i, T, lane);  // H01^T H00^-1
-  __syncwarp();
-  warp_mm6(T, false, H01, Hs, lane);
-  __syncwarp();
-  for (int e = lane; e < 36; e += 32) Hs[e] = H11[e] - Hs[e];
-  __syncwarp();
-  for (int e = lane; e < 36; e += 32) {
-    const int i = e / 6, j = e - 6 * i;
-    Lm[e] = 0.5f * (Hs[6 * i + j] + Hs[6 * j + i]) +
-            (i == j ? a.floor_m : 0.0f);
-  }
-  __syncwarp();
-  if (lane == 0) lie::chol_lower6(Lm, H00);  // the lower factor, into H00
-  __syncwarp();
-  for (int e = lane; e < 36; e += 32) {
-    const int i = e / 6, j = e - 6 * i;
-    const float s = H00[6 * j + i];  // sqrt = L^T
-    a.msqrt_out[e] = s;
-    prA[e] = full * s + (1.0f - full) * prAo[e];
-  }
+  const MargIn in{M, M + 9, R1, t1, M + 32, M + 41, prRo, prto, prAo};
+  marginal_warp(in, ov0 > 0.5f, a.adiag, a.eps_m, a.floor_m, sc,
+                [&](int e, float s) {
+                  a.msqrt_out[e] = s;
+                  prA[e] = full * s + (1.0f - full) * prAo[e];
+                });
   if (lane < 9) prR[lane] = full * R1[lane] + (1.0f - full) * prRo[lane];
   if (lane < 3) prt[lane] = full * t1[lane] + (1.0f - full) * prto[lane];
 }
@@ -342,7 +257,7 @@ __global__ void __launch_bounds__(kThreads) fused_gn_kernel(Args a) {
   // fixed by the wiring for every iteration
   const int nPair = W * (W + 1) / 2;
   if (tid < 32) {
-    if (a.fuse_marg) marginal_warp(a, prR, prt, prA, sm + ly.margs);
+    if (a.fuse_marg) k1_marginal(a, prR, prt, prA, sm + ly.margs);
   } else {
     // per landmark (and per pose) its plane factors in ascending order,
     // as a list after those of the lower indices: what the gather scans

@@ -8,30 +8,30 @@ kernel ``_fused_kernel``, body ``fused_gn_iterations``).  The CUDA kernel
 with IRLS, normal equations, Schur elimination with closed-form 3x3
 inverses, the reduced Cholesky solve, back-substitution, step
 sanitization, SE(3)/S^3 retraction — plus the exiting keyframe's
-marginal, in one thread block.  At ~1 MFLOP per iteration it is
-latency-bound; the design keeps the whole problem resident in shared
-memory across iterations, assembles the normal equations by gathering
-(no atomics: deterministic), and launches once per keyframe.  It receives
+marginal (``csrc/marginal.cuh``, which K8 also runs), in one thread
+block.  At ~1 MFLOP per iteration it is latency-bound; the design keeps
+the whole problem resident in shared memory across iterations,
+assembles the normal equations by gathering (no atomics:
+deterministic), and launches once per keyframe.  It receives
 the window and factors as K6 and K7 do (:func:`._problem.pack` and
 ``csrc/factor_graph.cuh``, which holds the factor arithmetic the three
 share).
 
 The plain version (CPU tensors) is the per-op chain the reference pins
-its fused body against: the marginal from the MARG block, substituted
-into the prior factor when the window is full, then ``gn_solve`` with
-analytic Jacobians.
+its fused body against: the marginal from the MARG block
+(:func:`.marginal.marginal_sqrt`), substituted into the prior factor
+when the window is full, then ``gn_solve`` with analytic Jacobians.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .._device import const
 from ..factors.graph import Factors, Window
 from ..factors.robust import RobustConfig
-from ..geometry import se3
 from ._build import check_inputs, check_stamps, library
 from ._problem import MAX_SMEM, _as, _launch, check_window, pack
+from .marginal import marginal_sqrt
 
 
 def smem_bytes(W: int, L: int, F: int, O: int, P: int) -> int:
@@ -73,37 +73,6 @@ def pack_marg(R0, t0, R1, t1, odom_R0, odom_t0, odom_valid0, mprior_R,
         row(mprior_R, mprior_t), a[0:16], a[16:32],
         torch.cat([a[32:36], torch.zeros((12,), dtype=f32, device=t0.device)]),
     ])
-
-
-def marginal_sqrt(R0, t0, R1, t1, odom_R0, odom_t0, odom_valid0, prior_R,
-                  prior_t, prior_sqrt, adiag, eps: float,
-                  floor: float) -> torch.Tensor:
-    """Sqrt-info of the exiting keyframe's 6-DOF marginal on slot 1.
-
-    Folds the slot-0 prior and the exiting odometry factor 0->1 (whitened
-    by ``diag(adiag)``), eliminates p0 in closed form, floors the
-    information by ``floor`` and returns ``chol(Hm)^T``."""
-    from ..solver.schur import chol_small, spd_inv6_blocked
-
-    dt, dev = t0.dtype, t0.device
-    A_o = torch.diag(const(list(adiag), dt, dev))
-    R_rel, t_rel = se3.se3_between(R0, t0, R1, t1)
-    R_err, t_err = se3.se3_between(odom_R0, odom_t0, R_rel, t_rel)
-    AJ = A_o @ se3.se3_right_jacobian_inv(se3.se3_log(R_err, t_err))
-    R_10, t_10 = se3.se3_between(R1, t1, R0, t0)
-    zero = torch.zeros((), dtype=dt, device=dev)
-    J0 = torch.where(odom_valid0, -(AJ @ se3.se3_adjoint(R_10, t_10)), zero)
-    J1 = torch.where(odom_valid0, AJ, zero)
-    R_pe, t_pe = se3.se3_between(prior_R, prior_t, R0, t0)
-    Jq = prior_sqrt @ se3.se3_right_jacobian_inv(se3.se3_log(R_pe, t_pe))
-
-    eye6 = torch.eye(6, dtype=dt, device=dev)
-    H00 = J0.T @ J0 + Jq.T @ Jq + eps * eye6
-    H01 = J0.T @ J1
-    H11 = J1.T @ J1
-    Hm = H11 - H01.T @ spd_inv6_blocked(H00) @ H01
-    Hm = 0.5 * (Hm + Hm.T) + floor * eye6
-    return chol_small(Hm).T
 
 
 def fused_gn_plain(window: Window, factors: Factors, iters: int, damping,

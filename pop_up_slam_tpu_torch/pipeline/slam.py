@@ -259,14 +259,17 @@ def _marginalize_oldest(state: SlamState, cfg: SlamConfig):
     the slot-0 prior and the exiting odometry factor 0->1 (pose chain
     only) with p0 eliminated in closed form, floored by
     ``marg_info_floor``; mean = the current estimate of p1.  Computed
-    from the pre-roll state; the same math is the fused kernel's."""
-    from ..ops.fused_gn import marginal_sqrt
+    from the pre-roll state: one launch of the marginal kernel on f32
+    CUDA tensors, else its per-op plain version
+    (:func:`..ops.marginal.exiting_marginal`); the same math is the fused
+    kernel's."""
+    from ..ops.marginal import exiting_marginal
 
     w = state.window
-    sqrt = marginal_sqrt(w.R[0], w.t[0], w.R[1], w.t[1], state.odom_R[0],
-                         state.odom_t[0], state.odom_valid[0],
-                         state.mprior_R, state.mprior_t, state.mprior_sqrt,
-                         *_marg_static(cfg))
+    sqrt = exiting_marginal(w.R, w.t, state.odom_R, state.odom_t,
+                            state.odom_valid, state.mprior_R,
+                            state.mprior_t, state.mprior_sqrt,
+                            *_marg_static(cfg))
     return w.R[1], w.t[1], sqrt
 
 

@@ -62,7 +62,8 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OWN_KERNELS = ("fused_gn_kernel", "depth_render_kernel", "chol_solve_kernel",
                "schur_small_kernel", "schur_gemm_kernel",
-               "plane_terms_kernel", "lm_assemble_kernel", "lm_trial_kernel")
+               "plane_terms_kernel", "lm_assemble_kernel", "lm_trial_kernel",
+               "marginal_kernel")
 
 
 def _device_events(prof):
